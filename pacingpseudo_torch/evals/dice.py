@@ -1,0 +1,49 @@
+"""Per-class Dice in the reference's two conventions (NCHW, on the device).
+
+* Validation Dice (reference utils/metrics.py:7-34), the port of
+  ``pacingpseudo_tpu/evals/dice.py::dice_per_class_jax``:
+  ``2·Σpq / (Σp + Σq + 1e-5)`` on the argmax of the softmax.
+* Inference Dice (reference inference.py:196-216), the batched form of
+  ``compute_dice_hard``: ``2·Σpq / max(Σp + Σq, 1e-8)`` on hard labels.
+
+Both give NaN for a class that is absent from prediction and target
+alike, so that averaging can skip it (train_chaos.py:388-391).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dice_per_class(probs, target_one_hot, eps=1e-5, region_mask=None):
+    """Validation Dice, ``(N, C)`` float32.
+
+    Args:
+      probs: ``(N, C, H, W)`` softmax values.
+      target_one_hot: ``(N, C, H, W)`` one-hot labels.
+      region_mask: optional ``(N, 1, H, W)`` live-region mask: the metric
+        covers the unpadded part of a padded canvas only.
+    """
+    num_classes = probs.shape[1]
+    pred = F.one_hot(probs.argmax(dim=1), num_classes).permute(0, 3, 1, 2).float()
+    t = target_one_hot.float()
+    if region_mask is not None:
+        pred = pred * region_mask
+        t = t * region_mask
+    inter = (pred * t).sum(dim=(2, 3))
+    p_sum = pred.sum(dim=(2, 3))
+    t_sum = t.sum(dim=(2, 3))
+    dice = 2.0 * inter / (p_sum + t_sum + eps)
+    both_empty = (p_sum == 0) & (t_sum == 0)
+    return torch.where(both_empty, torch.full_like(dice, float("nan")), dice)
+
+
+def dice_per_class_hard(pred, label, num_classes: int):
+    """Inference Dice of integer maps ``(N, H, W)``, ``(N, C)`` float32."""
+    classes = torch.arange(num_classes, device=pred.device).view(1, -1, 1, 1)
+    p = (pred.unsqueeze(1) == classes).float()
+    t = (label.unsqueeze(1) == classes).float()
+    inter = (p * t).sum(dim=(2, 3))
+    den = p.sum(dim=(2, 3)) + t.sum(dim=(2, 3))
+    dice = 2.0 * inter / den.clamp_min(1e-8)
+    return torch.where(den == 0, torch.full_like(dice, float("nan")), dice)

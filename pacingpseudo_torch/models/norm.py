@@ -1,0 +1,55 @@
+"""Batch norm with the JAX package's semantics (NCHW).
+
+``nn.BatchNorm2d`` updates its running variance with the *unbiased* batch
+variance; the JAX package (``pacingpseudo_tpu/models/norm.py:90-124`` and
+``ops/fused_bn.py``, groups=1) and flax's ``nn.BatchNorm`` use the
+*population* variance.  This module keeps theirs:
+
+* statistics in float32 whatever the input dtype, as ``E[x²] − E[x]²``,
+  clamped at 0 as flax's ``nn.BatchNorm`` does (the JAX ConvLayer's
+  reduce path does not clamp; the two differ only where roundoff makes
+  the difference negative, a channel constant over the batch);
+* ``y = (x − mean)·rsqrt(var + eps)·weight + bias``, returned in float32;
+  the caller casts to its compute dtype;
+* running stats ``r ← (1 − momentum)·r + momentum·stat`` with torch's
+  ``momentum=0.1`` (flax's 0.9), updated in place in training mode.
+
+Parameter and buffer names are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
+``running_mean``, ``running_var``, ``num_batches_tracked``), so the
+state_dict has the reference layout.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+
+class BatchNorm2d(nn.Module):
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, device=None):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.ones(num_features, **f32))
+        self.bias = nn.Parameter(torch.zeros(num_features, **f32))
+        self.register_buffer("running_mean", torch.zeros(num_features, **f32))
+        self.register_buffer("running_var", torch.ones(num_features, **f32))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long, device=device))
+
+    def forward(self, x):
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]

@@ -1,0 +1,236 @@
+"""UNet backbone (NCHW), the port of ``pacingpseudo_tpu/models/unet.py``.
+
+The logical network of the JAX package (reference models/unet.py:10-193);
+the JAX package's space-to-depth and layout-v2 forms are TPU execution
+layouts of the same parameters and are not ported.
+
+* 6 encoder and 5 decoder stages with channels
+  ``[min(max_ch, init_ch * 2**k) for k in range(6)]``;
+* ``output_stride`` 8/16/32: at 16 and 8 the deep stages keep their
+  resolution and dilate by 2 and 4 instead (unet.py:449-469);
+* EncBlock = 2x2 max-pool (or a stride-2 first conv) + DoubleConv;
+  DecBlock = 2x align-corners upsample (or a transposed conv) + skip
+  concat + DoubleConv; ConvLayer = Conv -> BatchNorm -> LeakyReLU(0.01);
+* returns the named end-points dict (``encoder/stage1..6``,
+  ``decoder/stage5..1``, ``segmentation/logits``).
+
+Compute dtype as in the JAX package (unet.py:417-418,510): activations in
+``dtype`` (bf16 on the main path), parameters and BN statistics float32,
+logits cast to float32.  Convolutions are ``F.conv2d``: the JAX package
+leaves them to XLA, outside its Pallas kernels.  Module names follow the
+reference state_dict (``enc_blockK.conv_block.conv_layerJ.{conv,norm_op}``,
+``dec_blockK.up_samp``, ``final_conv``).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pacingpseudo_torch.models.norm import BatchNorm2d
+from pacingpseudo_torch.ops.resize import upsample2x_align_corners
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype``: input, weight and
+    bias are cast, the parameters stay float32."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 dilation=1, bias=True, compute_dtype=torch.float32,
+                 device=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, bias=bias,
+                         device=device, dtype=torch.float32)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding, self.dilation)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no bias) computing in ``compute_dtype``."""
+
+    def __init__(self, in_ch, out_ch, factor, compute_dtype=torch.float32,
+                 device=None):
+        super().__init__(in_ch, out_ch, factor, stride=factor, bias=False,
+                         device=device, dtype=torch.float32)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  stride=self.stride)
+
+
+class ConvLayer(nn.Module):
+    """Conv2d -> BatchNorm -> LeakyReLU(1e-2) (reference unet.py:178-193)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, dilation=1,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        pad = dilation if kernel_size == 3 else 0
+        self.dtype = dtype
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride, pad, dilation,
+                           compute_dtype=dtype, device=device)
+        self.norm_op = BatchNorm2d(out_ch, device=device)
+
+    def forward(self, x):
+        return F.leaky_relu(self.norm_op(self.conv(x)).to(self.dtype), 1e-2)
+
+
+class DoubleConv(nn.Module):
+    """Two ConvLayers (reference unet.py:154-176)."""
+
+    def __init__(self, in_ch, out_ch, stride1=1, dilation=1,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv_layer1 = ConvLayer(in_ch, out_ch, 3, stride1, dilation,
+                                     dtype, device)
+        self.conv_layer2 = ConvLayer(out_ch, out_ch, 3, 1, dilation, dtype,
+                                     device)
+
+    def forward(self, x):
+        return self.conv_layer2(self.conv_layer1(x))
+
+
+class EncBlock(nn.Module):
+    """Encoder block (reference unet.py:100-127)."""
+
+    def __init__(self, in_ch, out_ch, do_subsamp=True, is_stride_conv=False,
+                 dilation=1, dtype=torch.float32, device=None):
+        super().__init__()
+        self.max_pool = do_subsamp and not is_stride_conv
+        stride1 = 2 if do_subsamp and is_stride_conv else 1
+        self.conv_block = DoubleConv(in_ch, out_ch, stride1, dilation, dtype,
+                                     device)
+
+    def forward(self, x):
+        if self.max_pool:
+            x = F.max_pool2d(x, 2, 2)
+        return self.conv_block(x)
+
+
+class DecBlock(nn.Module):
+    """Decoder block (reference unet.py:129-152).
+
+    ``up_factor`` 1 skips the upsample (the stride-1 stages of output
+    stride 8/16); the transposed-conv variant maps ``in_ch`` to
+    ``skip_ch`` with a ``up_factor`` kernel and stride.
+    """
+
+    def __init__(self, in_ch, skip_ch, out_ch, up_factor=2,
+                 is_trans_conv=False, dtype=torch.float32, device=None):
+        super().__init__()
+        self.up_factor = up_factor
+        if is_trans_conv:
+            self.up_samp = ConvTranspose2d(in_ch, skip_ch, up_factor, dtype,
+                                           device)
+            in_ch = skip_ch
+        else:
+            self.up_samp = None
+        self.conv_block = DoubleConv(in_ch + skip_ch, out_ch, dtype=dtype,
+                                     device=device)
+
+    def forward(self, x, skip):
+        if self.up_samp is not None:
+            x = self.up_samp(x)
+        elif self.up_factor != 1:
+            x = upsample2x_align_corners(x)
+        return self.conv_block(torch.cat([x, skip.to(x.dtype)], dim=1))
+
+
+class UNet(nn.Module):
+    """The segmentation backbone; returns a dict of named end-points.
+
+    Arguments mirror the reference (models/unet.py:10-20).  ``dtype`` is
+    the activation compute dtype.
+    """
+
+    def __init__(self, input_ch=1, init_ch=32, max_ch=512, num_classes=4,
+                 output_stride=32, is_stride_conv=False, is_trans_conv=False,
+                 elab_end_points=False, dtype=torch.float32, device=None):
+        super().__init__()
+        if is_trans_conv != is_stride_conv:
+            raise ValueError("Only combo of stride_conv and trans_conv or "
+                             "maxpool and upsample is allowed.")
+        if output_stride not in (8, 16, 32):
+            raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
+        ch = [min(max_ch, (2 ** k) * init_ch) for k in range(6)]
+        # (do_subsamp, dilation) of encoder stages 5 and 6; the decoder's
+        # upsample factors of stages 5 and 4 (unet.py:449-469).
+        deep, up5, up4 = {32: (((True, 1), (True, 1)), 2, 2),
+                          16: (((True, 1), (False, 2)), 1, 2),
+                          8: (((False, 2), (False, 4)), 1, 1)}[output_stride]
+        self.dtype = dtype
+        self.elab_end_points = elab_end_points
+        kw = dict(dtype=dtype, device=device)
+        enc = dict(is_stride_conv=is_stride_conv, **kw)
+        self.enc_block1 = EncBlock(input_ch, ch[0], do_subsamp=False, **enc)
+        self.enc_block2 = EncBlock(ch[0], ch[1], **enc)
+        self.enc_block3 = EncBlock(ch[1], ch[2], **enc)
+        self.enc_block4 = EncBlock(ch[2], ch[3], **enc)
+        self.enc_block5 = EncBlock(ch[3], ch[4], deep[0][0], dilation=deep[0][1], **enc)
+        self.enc_block6 = EncBlock(ch[4], ch[5], deep[1][0], dilation=deep[1][1], **enc)
+        dec = dict(is_trans_conv=is_trans_conv, **kw)
+        self.dec_block5 = DecBlock(ch[5], ch[4], ch[4], up5, **dec)
+        self.dec_block4 = DecBlock(ch[4], ch[3], ch[3], up4, **dec)
+        self.dec_block3 = DecBlock(ch[3], ch[2], ch[2], 2, **dec)
+        self.dec_block2 = DecBlock(ch[2], ch[1], ch[1], 2, **dec)
+        self.dec_block1 = DecBlock(ch[1], ch[0], ch[0], 2, **dec)
+        self.final_conv = Conv2d(ch[0], num_classes, 1, compute_dtype=dtype,
+                                 device=device)
+        self.end_point_channels = {
+            **{f"encoder/stage{k + 1}": ch[k] for k in range(6)},
+            **{f"decoder/stage{k + 1}": ch[k] for k in range(5)},
+            "segmentation/logits": num_classes,
+        }
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        x = x.to(self.dtype)
+        enc1 = self.enc_block1(x)
+        enc2 = self.enc_block2(enc1)
+        enc3 = self.enc_block3(enc2)
+        enc4 = self.enc_block4(enc3)
+        enc5 = self.enc_block5(enc4)
+        enc6 = self.enc_block6(enc5)
+        dec5 = self.dec_block5(enc6, enc5)
+        dec4 = self.dec_block4(dec5, enc4)
+        dec3 = self.dec_block3(dec4, enc3)
+        dec2 = self.dec_block2(dec3, enc2)
+        dec1 = self.dec_block1(dec2, enc1)
+        logits = self.final_conv(dec1).float()
+        if not self.elab_end_points:
+            return {"segmentation/logits": logits}
+        return {
+            "encoder/stage1": enc1, "encoder/stage2": enc2,
+            "encoder/stage3": enc3, "encoder/stage4": enc4,
+            "encoder/stage5": enc5, "encoder/stage6": enc6,
+            "decoder/stage5": dec5, "decoder/stage4": dec4,
+            "decoder/stage3": dec3, "decoder/stage2": dec2,
+            "decoder/stage1": dec1, "segmentation/logits": logits,
+        }
+
+
+@torch.no_grad()
+def torch_default_init_(module: nn.Module, generator: torch.Generator):
+    """Draw every conv weight and bias anew from ``generator``.
+
+    PyTorch's default conv init, ``kaiming_uniform(a=sqrt(5))`` for the
+    weight and ``U(±1/sqrt(fan_in))`` for the bias, both come to
+    ``U(±1/sqrt(fan_in))`` with ``fan_in = weight.size(1) * kh * kw`` (for a
+    transposed conv that is its out-channels, as in torch).  BatchNorm
+    keeps ones and zeros.
+    """
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.weight.shape[1] * m.weight[0, 0].numel()
+            bound = fan_in ** -0.5
+            nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+            if m.bias is not None:
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+    return module

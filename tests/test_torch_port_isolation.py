@@ -1,0 +1,60 @@
+"""The port stands alone: no module of ``pacingpseudo_torch``, and not
+``chip_smoke.py``, imports JAX, flax, optax or the JAX package.
+
+Two checks: a fresh interpreter imports every port module and finds none
+of them in ``sys.modules``, and an AST scan of the sources finds no such
+import statement (also inside functions, where the first check cannot
+see it).
+"""
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "pacingpseudo_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pacingpseudo_tpu")
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _is_forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    loaded = json.loads(out.splitlines()[-1])
+    assert "pacingpseudo_torch.train.step" in loaded
+    assert [m for m in loaded if _is_forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _is_forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _is_forbidden(node.module or ""):
+                bad.append(node.module)
+    assert bad == []
