@@ -1,1 +1,2 @@
-"""Ops of the port: the fused loss with its CUDA kernels, and resizing."""
+"""Ops of the port: the fused loss and the warp table with their CUDA kernels,
+the warp's resampling primitives, and resizing."""

@@ -21,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fused_loss",)
+SOURCES = ("fused_loss", "warp_table")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -77,6 +77,6 @@ def build(names: Sequence[str] = SOURCES) -> Tuple[float, Dict[str, str]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if needed.  The
-    caller keeps the handle (``ops/fused_loss.py`` caches it)."""
+    caller keeps the handle (each wrapper module caches its own)."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))

@@ -4,10 +4,12 @@ The port of ``pacingpseudo_tpu/train/step.py:45-232,308-338`` (reference
 train_chaos.py:263-315, consistency_reglur_memory.py:24-102).  One train
 step runs the siamese forward, every enabled loss, the backward, the
 optimizer update with the per-epoch learning rate, and the memory-bank
-EMA.  It takes an already augmented batch: the JAX step's
-``augment_fn=None`` form.
+EMA.  With an ``augment_fn`` (aug/engine.py ``make_train_augment_fn``) the
+step takes a raw canvas batch and augments it first, on the device, as the
+JAX step does with its ``augment_fn``; without one it takes an already
+augmented batch.
 
-Batches are NCHW dicts: ``image`` and ``image_strong`` ``(N, 1, H, W)``,
+Augmented batches are NCHW dicts: ``image`` and ``image_strong`` ``(N, 1, H, W)``,
 ``scribble`` one-hot ``(N, C+1, H, W)`` (last channel = ignore),
 ``label`` one-hot ``(N, C, H, W)``, ``valid_mask`` ``(N, 1, H, W)``.
 
@@ -17,7 +19,7 @@ the caller's sync.  The step itself never syncs with the host.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -168,20 +170,33 @@ def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
 
 
 def make_pacing_train_step(config, steps_per_epoch: int,
-                           module_train: bool = True
-                           ) -> Callable[[TrainState, Dict[str, Any]], Dict]:
-    """The pacing train step ``(state, batch) -> metrics``.
+                           module_train: bool = True,
+                           augment_fn: Optional[Callable] = None
+                           ) -> Callable[..., Dict]:
+    """The pacing train step ``(state, batch, generator=None) -> metrics``.
 
     It updates ``state`` in place (see train/state.py) and leaves this
     step's gradients in the parameters' ``.grad``.  ``module_train=False``
     is the frozen-BN variant of ``ref_quirk_bn_eval_after_first_epoch``:
     BatchNorm normalises with its running statistics and does not update
     them, dropout is off.
+
+    ``augment_fn``: optional on-device augmentation ``(raw_batch,
+    generator) -> batch``.  With it the step's ``batch`` is a raw canvas
+    batch (``image/label/scribble`` (N, S, S), ``size`` (N, 2)) and
+    ``generator`` a ``torch.Generator`` on the batch's device, from which
+    the augmentation draws; it runs under ``torch.no_grad()``.
     """
 
-    def train_step(state: TrainState, batch: Dict[str, Any]):
+    def train_step(state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None):
         model, opt = state.model, state.optimizer
         epoch = float(state.step // steps_per_epoch)
+        if augment_fn is not None:
+            if generator is None:
+                raise ValueError("a step with an augment_fn needs a generator")
+            with torch.no_grad():
+                batch = augment_fn(batch, generator)
         model.train(module_train)
         opt.zero_grad(set_to_none=True)
         total, metrics, new_bank = _pacing_losses(config, model, batch, epoch)
