@@ -13,10 +13,18 @@ Phases, each of which exits non-zero on failure:
               bit for bit (12 x 256 x 256, 3 x 64 x 96, planes holding the
               sentinel 255 and the ignored index); then time kernel and
               plain version with CUDA events beside the bound the card's
-              memory rate sets.
+              memory rate sets.  Then hold the fused-ConvLayer kernels
+              ``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their
+              plain versions in bfloat16 and float32 at ``CONV_CHECK_SHAPES``,
+              and time each (bfloat16) at every fused layer of the step beside
+              its bound, its plain version and the PyTorch call that computes
+              the same function.  Hold the fused path's float32 weight
+              gradient, from bfloat16 inputs, against a float64 sum.
 3. parity  -- one train step at a small size in float32, once through the
               kernels and once through the loss library, from the same
-              state: the losses and gradients must agree.
+              state: the losses and gradients must agree.  Then one such
+              step through the fused conv kernels against the unfused
+              ConvLayer (``parity (fused conv)``).
 4. train   -- the full-width Experiment session (CHAOS shape: 256x256,
               batch 12, 5 classes, init_ch 32, max_ch 512, output stride 8,
               hid_ch 64, bf16 compute), 3 warm-up and 5 timed steps on a
@@ -36,7 +44,15 @@ Phases, each of which exits non-zero on failure:
               5 timed steps, one launch of each of the three kernels a step.
 8. eval (raw) -- ``eval_preprocess_batch`` on a raw validation batch, then
               the eval step with its ``region_mask``.
+9. train (raw, fused conv) -- the raw session under the conv impl
+              ``"fused"`` (``PACING_CONV_IMPL=fused``): 3 warm-up and 5 timed
+              steps; each step launches ``conv_stats`` and ``bn_sums`` once
+              per fused ConvLayer (18) and ``conv_pad_out`` once per fused
+              layer whose input needs a gradient (17: not the first, which
+              reads the image), and each of the three earlier kernels once.
 
+Phases 1-8 run the default conv impl (``"xla"``, the unfused ConvLayer)
+whatever ``PACING_CONV_IMPL`` says.
 Prints the card's name and power limit first, a ``kernels`` JSON line
 before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -59,6 +75,21 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 LOSS_WEIGHTS = (1.0, 0.37, 2.1)   # loss weights for the backward checks
 TIMING_REPS = 100
+CONV_TIMING_REPS = 20
+# (label, n, ci, co, h, w): where the fused-ConvLayer kernels are held
+# against their plain versions: fused layers of the full-width step (the
+# weak and strong streams stacked, N = 24) and one ragged small shape (Ci
+# and Co off every vector width, W != H).
+CONV_CHECK_SHAPES = (
+    ("enc1 layer 1", 24, 1, 32, 256, 256),
+    ("enc1 layer 2", 24, 32, 32, 256, 256),
+    ("dec1 layer 1", 24, 96, 32, 256, 256),
+    ("enc3 layer 2", 24, 128, 128, 64, 64),
+    ("dec5 layer 1", 24, 1024, 512, 32, 32),
+    ("ragged", 3, 12, 20, 32, 40),
+)
+CONV_KERNELS = ("conv_stats", "bn_sums", "conv_pad_out")
+FUSED_LAYERS = 18   # ConvLayers of the full-width step on the fused path
 
 
 def _fail(msg: str) -> None:
@@ -224,6 +255,202 @@ def phase_kernels(fl, wt, dev):
     return rows
 
 
+def _conv_inputs(n, ci, co, h, w, dtype, dev, seed):
+    """Padded NHWC canvases with a zero border and (9, Cin, Cout) weights at
+    a conv's fan-in scale: ``xp``, ``w9``, ``bias`` (float32) for
+    ``conv_stats``; ``gzp`` and ``w9t`` for ``bn_sums`` / ``conv_pad_out``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def canvas(c):
+        x = torch.zeros((n, h + 2, w + 2, c), dtype=dtype, device=dev)
+        x[:, 1:-1, 1:-1] = torch.randn((n, h, w, c), generator=gen, device=dev)
+        return x
+
+    def weights(cin, cout):
+        return (torch.randn((9, cin, cout), generator=gen, device=dev)
+                / math.sqrt(9 * cin)).to(dtype)
+
+    bias = 0.1 * torch.randn(co, generator=gen, device=dev)
+    return canvas(ci), weights(ci, co), bias, canvas(co), weights(co, ci)
+
+
+def _bn_aux(sums, count, dev, seed):
+    """(4, Co) rows [mean, rstd, gamma, beta] from conv_stats' sums."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    co = sums.shape[1]
+    mean = sums[0] / count
+    var = sums[1] / count - mean.square()
+    gamma = 0.5 + torch.rand(co, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(co, generator=gen, device=dev)
+    return torch.stack([mean, torch.rsqrt(var + 1e-5), gamma, beta])
+
+
+def _held(name, got, want, atol, rtol=0.0):
+    """``|got - want| <= atol + rtol·|want|`` everywhere; the max abs error."""
+    err = (got.float() - want.float()).abs()
+    bound = atol + rtol * want.float().abs()
+    worst = float((err - bound).max())
+    _check(bool(torch.isfinite(got).all()) and worst <= 0,
+           f"{name}: max abs error {float(err.max())}, exceeds its tolerance by {worst}")
+    return float(err.max())
+
+
+def check_conv_kernels(fc, dev):
+    """``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their plain
+    versions at ``CONV_CHECK_SHAPES``, in bfloat16 and float32.  Returns the
+    max abs error of each kernel.
+
+    Tolerances.  ``y`` and ``dxp``: both sides sum exact products in float32
+    in different orders, so they differ by float32 roundoff (1e-4 of the
+    largest value) and, in bfloat16, by one rounding step of the result
+    (rtol 2**-7, one bfloat16 ulp).  The sums (of conv_stats and bn_sums):
+    rtol 1e-4, with an atol of 1e-4 of the row's largest sum for a channel
+    whose sum lies near 0.  The border of ``dxp`` exactly 0."""
+    err = dict.fromkeys(CONV_KERNELS, 0.0)
+    for i, (label, n, ci, co, h, w) in enumerate(CONV_CHECK_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{label} ({ci} -> {co} @ {h}x{w}, N {n}) {str(dtype)[6:]}"
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            xp, w9, bias, gzp, w9t = _conv_inputs(n, ci, co, h, w, dtype, dev, 300 + i)
+            y, sums = fc.conv_stats(xp, w9, bias)
+            y_p, sums_p = fc.conv_stats_plain(xp, w9, bias)
+            torch.cuda.synchronize()
+            scale = 1e-4 * float(y_p.float().abs().max())
+            e = _held(f"conv_stats y {tag}", y, y_p, scale, rtol)
+            row = 1e-4 * sums_p.abs().amax(dim=1, keepdim=True)
+            e = max(e, _held(f"conv_stats sums {tag}", sums, sums_p, row, 1e-4))
+            err["conv_stats"] = max(err["conv_stats"], e)
+
+            aux = _bn_aux(sums_p, n * h * w, dev, 400 + i)
+            got = fc.bn_sums(y, gzp, aux, 1e-2)
+            want = fc.bn_sums_plain(y, gzp, aux, 1e-2)
+            torch.cuda.synchronize()
+            row = 1e-4 * want.abs().amax(dim=1, keepdim=True)
+            err["bn_sums"] = max(err["bn_sums"],
+                                 _held(f"bn_sums {tag}", got, want, row, 1e-4))
+
+            dxp = fc.conv_pad_out(gzp, w9t)
+            dxp_p = fc.conv_pad_out_plain(gzp, w9t)
+            torch.cuda.synchronize()
+            scale = 1e-4 * float(dxp_p.float().abs().max())
+            err["conv_pad_out"] = max(err["conv_pad_out"], _held(
+                f"conv_pad_out {tag}", dxp, dxp_p, scale, rtol))
+            border = torch.cat([dxp[:, 0].flatten(), dxp[:, -1].flatten(),
+                                dxp[:, :, 0].flatten(), dxp[:, :, -1].flatten()])
+            _check(bool((border == 0).all()), f"conv_pad_out {tag}: border not zero")
+            print(f"kernels: fused conv {tag} ok", flush=True)
+            del xp, w9, gzp, w9t, y, y_p, dxp, dxp_p
+    return err
+
+
+def check_weight_grad(fc, dev):
+    """The fused path's ``dW`` in bfloat16 at one layer of the step (enc3
+    layer 2: 128 -> 128 @ 64x64, N 24) against a float64 sum of the same
+    bfloat16 products.  It must be float32 and within 2**-12 of the largest
+    value, an eighth of a bfloat16 step: rounded to bfloat16, as a bfloat16
+    library call returns it, it would be off by up to 2**-9 of a value, and
+    that gap is printed beside it."""
+    n, ci, co, h, w = 24, 128, 128, 64, 64
+    xp, _, _, gzp, _ = _conv_inputs(n, ci, co, h, w, torch.bfloat16, dev, 700)
+    dy = gzp[:, 1:-1, 1:-1].contiguous()
+    got = fc.weight_grad(xp, dy)
+    x64, dy64 = xp.double(), dy.double()
+    want = torch.stack([torch.einsum("nhwc,nhwd->cd", x64[:, i:i + h, j:j + w], dy64)
+                        for i in range(3) for j in range(3)]).reshape(3, 3, ci, co)
+    torch.cuda.synchronize()
+    _check(got.dtype == torch.float32 and tuple(got.shape) == (3, 3, ci, co),
+           f"weight_grad: {got.dtype} {tuple(got.shape)}")
+    top = float(want.abs().max())
+    err = _held("weight_grad (bf16 in, float32 out)", got, want, 2.0 ** -12 * top)
+    rounded = float((got.bfloat16().double() - want).abs().max())
+    print(f"kernels: fused dW (bf16, {ci} -> {co} @ {h}x{w}, N {n}) max abs error "
+          f"{err:.3e} against float64 ({err / top:.2e} of the largest value); "
+          f"rounded to bfloat16 {rounded:.3e} ({rounded / top:.2e})", flush=True)
+    del xp, gzp, dy, x64, dy64
+
+
+def time_conv_kernels(fc, dev, err, flush):
+    """Each fused-ConvLayer kernel, alone with L2 flushed, at every fused
+    layer of the full-width step (bfloat16), beside its plain version, its
+    bound and the PyTorch call that computes the same function where there
+    is one: ``F.conv2d`` on the channels-last canvas (kernel 3) and the
+    input-gradient ``convolution_backward`` (kernel 5).  Returns the rows of
+    the ``kernels`` line; times and bounds are sums over the layers that
+    launch the kernel in one step."""
+    import torch.nn.functional as F
+
+    from scripts.reckon_fused_conv_bounds import (BF16_OPS_PER_S, conv_layer_shapes,
+                                                  kernel_costs)
+
+    replaces = {"conv_stats": "fused_convbn.py:127", "bn_sums": "fused_convbn.py:160",
+                "conv_pad_out": "fused_convbn.py:201"}
+    cost_key = {"conv_stats": "_conv_stats_kernel", "bn_sums": "_bn_sums_kernel",
+                "conv_pad_out": "_conv_pad_out_kernel"}
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0, "bound_ms": 0.0} for k in CONV_KERNELS}
+    layers = [s for s in conv_layer_shapes(_experiment_config()) if s[6]]
+    for i, (name, n, ci, co, h, w, _, needs_dx) in enumerate(layers):
+        xp, w9, bias, gzp, w9t = _conv_inputs(n, ci, co, h, w, torch.bfloat16, dev, 500 + i)
+        y, sums = fc.conv_stats(xp, w9, bias)
+        aux = _bn_aux(sums, n * h * w, dev, 600 + i)
+        x_cl = xp.permute(0, 3, 1, 2)
+        w_oihw = w9.reshape(3, 3, ci, co).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bias_dt = bias.to(torch.bfloat16)
+        dy_cl = gzp[:, 1:-1, 1:-1].contiguous().permute(0, 3, 1, 2)
+        x_like = torch.empty((n, ci, h, w), dtype=torch.bfloat16, device=dev,
+                             memory_format=torch.channels_last)
+        w_lib = w9t.reshape(3, 3, co, ci).flip((0, 1)).permute(2, 3, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        calls = {
+            "conv_stats": (lambda: fc.conv_stats(xp, w9, bias),
+                           lambda: fc.conv_stats_plain(xp, w9, bias),
+                           lambda: F.conv2d(x_cl, w_oihw, bias_dt)),
+            "bn_sums": (lambda: fc.bn_sums(y, gzp, aux, 1e-2),
+                        lambda: fc.bn_sums_plain(y, gzp, aux, 1e-2), None),
+            "conv_pad_out": (lambda: fc.conv_pad_out(gzp, w9t),
+                             lambda: fc.conv_pad_out_plain(gzp, w9t),
+                             lambda: torch.ops.aten.convolution_backward(
+                                 dy_cl, x_like, w_lib, None, [1, 1], [1, 1], [1, 1],
+                                 False, [0, 0], 1, [True, False, False])),
+        }
+        line = f"kernels: {name.split('backbone.')[-1]} {ci} -> {co} @ {h}x{w}:"
+        costs = kernel_costs(n, ci, co, h, w)
+        for k, (fn, plain, library) in calls.items():
+            if k == "conv_pad_out" and not needs_dx:
+                line += " conv_pad_out not launched (no dx);"
+                continue
+            nbytes, tensor_ops, f32_ops = costs[cost_key[k]]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = max(tensor_ops / BF16_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+            ms = {"ms": _time_ms(fn, flush, CONV_TIMING_REPS),
+                  "plain_ms": _time_ms(plain, flush, CONV_TIMING_REPS),
+                  "library_ms": (_time_ms(library, flush, CONV_TIMING_REPS)
+                                 if library else 0.0),
+                  "bytes_ms": t_bytes, "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
+            for key, v in ms.items():
+                tot[k][key] += v
+            line += (f" {k} {ms['ms']:.4f} ms (bound {ms['bound_ms']:.4f}, plain "
+                     f"{ms['plain_ms']:.4f}" + (f", library {ms['library_ms']:.4f}"
+                                                if library else "") + ");")
+        print(line, flush=True)
+        del xp, w9, gzp, w9t, y, x_like, dy_cl, w_lib, w_oihw
+    rows = []
+    for k in CONV_KERNELS:
+        t = tot[k]
+        rows.append({"name": k, "route": "cuda",
+                     "source": "pacingpseudo_torch/csrc/fused_convbn.cu",
+                     "replaces": f"pacingpseudo_tpu/ops/pallas/{replaces[k]}",
+                     "launches": None, "max_abs_err": err[k], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+                     "library_ms": t["library_ms"] if k != "bn_sums" else None})
+        print(f"kernels: {k} over the step's layers {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, library "
+              f"{rows[-1]['library_ms']}", flush=True)
+    return rows
+
+
 def make_batch(n, size, num_classes, seed, dev):
     """A seeded synthetic batch in the step's NCHW form: blobs of each class
     on a noisy background, an intensity-jittered strong stream, scribble
@@ -301,6 +528,72 @@ def phase_parity(dev):
           f"loss_total {m_k['loss_total']:.6f}", flush=True)
 
 
+def _grads_close_l2(tag, got, want, rtol):
+    """Per leaf: L2 error within ``rtol`` of the leaf's L2 norm.  A conv
+    bias that feeds a BatchNorm has a true gradient of 0; both sides must
+    give roundoff under 1e-3 x the max gradient of its conv weight."""
+    for k, w in want.items():
+        if k.endswith(".conv.bias") or k == "aux_path.layer_bottleneck.1.bias":
+            scale = 1e-3 * float(want[k[:-4] + "weight"].abs().max())
+            _check(float(got[k].abs().max()) <= scale and float(w.abs().max()) <= scale,
+                   f"{tag}: BN-fed bias grad {k} is not roundoff")
+            continue
+        e = float((got[k] - w).norm())
+        _check(e <= rtol * float(w.norm()), f"{tag}: grad {k} L2 err {e} vs norm "
+               f"{float(w.norm())}")
+
+
+def phase_parity_fused(fc, dev):
+    """One train step at 64x64 in float32, TF32 off for convolutions and
+    matmuls, through the fused conv kernels and through the unfused path
+    from the same state.  Losses rtol 1e-4; gradients in L2 within 1e-2 of
+    each leaf's norm: float32 differences of ~5e-5 flip the LeakyReLU
+    branch of single pixels whose pre-activation lies nearer 0 (ROADMAP.md
+    Queue 3).  At 64x64 the gate fuses enc_block1, enc_block2, dec_block2
+    and dec_block1: 8 layers, 7 of which need dx."""
+    from pacingpseudo_torch.config import ExperimentConfig
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import make_pacing_train_step
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = make_batch(2, 64, 4, seed=3, dev=dev)
+    runs = {}
+    try:
+        for impl in ("fused", "xla"):
+            fc.set_conv_impl(impl)
+            config = ExperimentConfig(
+                num_classes=4, ignored_index=4, init_ch=8, hid_ch=16, batch_size=2,
+                session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
+                do_aux_path=True, do_memory=True, compute_dtype="float32").validate()
+            state = create_train_state(config, device=dev, seed=11)
+            fc.reset_launch_counts()
+            metrics = make_pacing_train_step(config, steps_per_epoch=4)(state, batch)
+            torch.cuda.synchronize()
+            grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+            runs[impl] = ({k: float(v) for k, v in metrics.items()}, grads,
+                          dict(fc.LAUNCHES))
+    finally:
+        fc.set_conv_impl("xla")
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (m_f, g_f, n_f), (m_x, g_x, n_x) = runs["fused"], runs["xla"]
+    _check(n_f == {"conv_stats": 8, "bn_sums": 8, "conv_pad_out": 7}
+           and not any(n_x.values()),
+           f"parity (fused conv): launches {n_f} fused, {n_x} unfused")
+    for k in m_x:
+        _check(math.isclose(m_f[k], m_x[k], rel_tol=1e-4, abs_tol=1e-7),
+               f"parity (fused conv): {k} {m_f[k]} vs {m_x[k]}")
+    _grads_close_l2("parity (fused conv)", g_f, g_x, 1e-2)
+    worst = max(float((g_f[k] - g_x[k]).norm() / g_x[k].norm().clamp_min(1e-30))
+                for k in g_x if not k.endswith("bias"))
+    print(f"parity (fused conv): fused step == unfused step over {len(g_x)} "
+          f"gradients (worst relative L2 error of a weight {worst:.2e}), "
+          f"launches {n_f}, loss_total {m_f['loss_total']:.6f}", flush=True)
+
+
 def _experiment_config():
     from pacingpseudo_torch.config import ExperimentConfig
     return ExperimentConfig(
@@ -321,8 +614,11 @@ def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
                 generator=None, steps_warm=3, steps_timed=5):
     """The full-width Experiment train step, ``steps_warm + steps_timed``
     times, on the batches ``next_batch()`` gives.  The launch counts are set
-    to 0 just before the first step and read just after the last; every
-    kernel of ``expected`` must have launched once per step.  Returns the
+    to 0 just before the first step and read just after the last; each
+    kernel of ``expected`` (name -> launches a step) must have launched that
+    many times per step, and no other kernel at all.  BatchNorm running
+    statistics must move in ``enc_block1`` (fused under the fused conv
+    impl) and in the dilated ``enc_block5`` (never fused).  Returns the
     state, the counts and the median ms of the timed steps."""
     from pacingpseudo_torch.train.state import create_train_state
     from pacingpseudo_torch.train.step import make_pacing_train_step
@@ -333,8 +629,10 @@ def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
     n_params = sum(p.numel() for p in model.parameters())
     train_step = make_pacing_train_step(config, steps_per_epoch=100,
                                         augment_fn=augment_fn)
-    bn = model.backbone.enc_block1.conv_block.conv_layer1.norm_op
-    stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+    bns = {k: getattr(model.backbone, k).conv_block.conv_layer1.norm_op
+           for k in ("enc_block1", "enc_block5")}
+    stats0 = {k: (bn.running_mean.clone(), bn.running_var.clone())
+              for k, bn in bns.items()}
     print(f"{name}: {n_params} parameters, batch {config.batch_size} x "
           f"{config.spec.input_size}, {config.compute_dtype}", flush=True)
 
@@ -357,13 +655,14 @@ def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
     for i, m in enumerate(losses):
         _check(all(math.isfinite(v) for v in m.values()),
                f"{name}: non-finite metrics at step {i}: {m}")
-    _check(all(launches[k] == steps for k in expected)
+    _check(all(launches[k] == n * steps for k, n in expected.items())
            and all(v == 0 for k, v in launches.items() if k not in expected),
            f"{name}: kernel launches {launches} over {steps} steps, expected "
-           f"one a step of each of {expected} and none of the others")
-    _check(not (torch.equal(bn.running_mean, stats0[0])
-                or torch.equal(bn.running_var, stats0[1])),
-           f"{name}: BatchNorm running statistics did not move")
+           f"{expected} a step and none of the others")
+    for k, bn in bns.items():
+        _check(not (torch.equal(bn.running_mean, stats0[k][0])
+                    or torch.equal(bn.running_var, stats0[k][1])),
+               f"{name}: BatchNorm running statistics of {k} did not move")
     median_ms = statistics.median(step_ms[steps_warm:])
     print(f"{name}: losses step 1 {losses[0]}", flush=True)
     print(f"{name}: losses step {steps} {losses[-1]}", flush=True)
@@ -548,6 +847,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs on a GPU only")
     from pacingpseudo_torch.ops import _build
+    from pacingpseudo_torch.ops import fused_convbn as fc
     from pacingpseudo_torch.ops import fused_loss as fl
     from pacingpseudo_torch.ops import warp_table as wt
 
@@ -566,10 +866,18 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
-    counters = (fl, wt)
-    loss_kernels = ("fused_loss_fwd", "fused_loss_bwd")
+    # The phases before the last run the default (unfused) ConvLayer,
+    # whatever PACING_CONV_IMPL says.
+    fc.set_conv_impl("xla")
+    counters = (fl, wt, fc)
+    loss_kernels = {"fused_loss_fwd": 1, "fused_loss_bwd": 1}
+    raw_kernels = {**loss_kernels, "warp_table": 1}
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(fl, wt, dev)
+    conv_rows = time_conv_kernels(fc, dev, check_conv_kernels(fc, dev), flush)
+    check_weight_grad(fc, dev)
     phase_parity(dev)
+    phase_parity_fused(fc, dev)
 
     config = _experiment_config()
     batch = make_batch(config.batch_size, config.spec.input_size[0],
@@ -577,26 +885,50 @@ def main() -> None:
     state, _, pre_ms = phase_train("train", counters, loss_kernels, dev,
                                    lambda: batch)
     phase_eval("eval", state, batch)
-    del state
+    del state, batch
 
-    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=dev)
+    from scripts.reckon_fused_conv_bounds import conv_layer_shapes
+    layers = [s for s in conv_layer_shapes(config) if s[6]]
+    fused_kernels = {**raw_kernels, "conv_stats": len(layers), "bn_sums": len(layers),
+                     "conv_pad_out": sum(s[7] for s in layers)}
+    # The gate and the dx skip are the code under test: hold what they give
+    # against the layers JAX fuses at this shape (all but the four dilated
+    # ones; enc_block1's first layer reads the image).
+    _check(len(layers) == FUSED_LAYERS and fused_kernels["conv_pad_out"] == FUSED_LAYERS - 1,
+           f"train (raw, fused conv): {len(layers)} fused layers, "
+           f"{fused_kernels['conv_pad_out']} with dx; want {FUSED_LAYERS} and "
+           f"{FUSED_LAYERS - 1}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as root:
         raw_batches, val_loader, config = make_raw_pool(root, dev)
         augment_fn = phase_augment(wt, dev, next(raw_batches), config, flush)
         del flush
         state, launches, raw_ms = phase_train(
-            "train (raw)", counters, loss_kernels + ("warp_table",), dev,
+            "train (raw)", counters, raw_kernels, dev,
             lambda: next(raw_batches), augment_fn=augment_fn,
             generator=torch.Generator(device=dev).manual_seed(config.seed))
-        raw_batches.close()
         print(f"train (raw): median step {raw_ms:.3f} ms with the augmentation "
               f"inside, {pre_ms:.3f} ms on the pre-augmented batch: the "
               f"augmentation adds {raw_ms - pre_ms:.3f} ms a step", flush=True)
         phase_eval_raw(state, val_loader, config, dev)
+        del state
+        fc.set_conv_impl("fused")
+        try:
+            _, fused_launches, fused_ms = phase_train(
+                "train (raw, fused conv)", counters, fused_kernels, dev,
+                lambda: next(raw_batches), augment_fn=augment_fn,
+                generator=torch.Generator(device=dev).manual_seed(config.seed))
+        finally:
+            fc.set_conv_impl("xla")
+        raw_batches.close()
+        print(f"train (raw, fused conv): median step {fused_ms:.3f} ms with the "
+              f"fused ConvLayer, {raw_ms:.3f} ms unfused in this run; "
+              f"launches a step {fused_kernels}", flush=True)
 
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": rows}), flush=True)
+    for row in conv_rows:
+        row["launches"] = fused_launches[row["name"]]
+    print(json.dumps({"kernels": rows + conv_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

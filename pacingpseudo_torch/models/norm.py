@@ -12,7 +12,10 @@ variance; the JAX package (``pacingpseudo_tpu/models/norm.py:90-124`` and
 * ``y = (x − mean)·rsqrt(var + eps)·weight + bias``, returned in float32;
   the caller casts to its compute dtype;
 * running stats ``r ← (1 − momentum)·r + momentum·stat`` with torch's
-  ``momentum=0.1`` (flax's 0.9), updated in place in training mode.
+  ``momentum=0.1`` (flax's 0.9), updated in place in training mode by
+  :meth:`BatchNorm2d.update_running_stats`, which the fused ConvLayer
+  (``ops/fused_convbn.py``) calls too, as the JAX package's
+  ``BNParamsOnly.__call__`` serves both of its paths.
 
 Parameter and buffer names are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so the
@@ -44,12 +47,18 @@ class BatchNorm2d(nn.Module):
         if self.training:
             mean = x32.mean(dim=(0, 2, 3))
             var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
+            self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (x32 - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
+
+    @torch.no_grad()
+    def update_running_stats(self, mean, var):
+        """The running-statistics update of one training batch, outside the
+        gradient: both ConvLayer paths call it (the fused one with the
+        statistics its conv kernel took)."""
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)

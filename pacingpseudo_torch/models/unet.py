@@ -17,7 +17,9 @@ layouts of the same parameters and are not ported.
 Compute dtype as in the JAX package (unet.py:417-418,510): activations in
 ``dtype`` (bf16 on the main path), parameters and BN statistics float32,
 logits cast to float32.  Convolutions are ``F.conv2d``: the JAX package
-leaves them to XLA, outside its Pallas kernels.  Module names follow the
+leaves them to XLA, outside its Pallas kernels, except in the training-mode
+ConvLayers that ``PACING_CONV_IMPL=fused`` sends through the fused kernels
+of ``ops/fused_convbn.py`` (see :class:`ConvLayer`).  Module names follow the
 reference state_dict (``enc_blockK.conv_block.conv_layerJ.{conv,norm_op}``,
 ``dec_blockK.up_samp``, ``final_conv``).
 """
@@ -30,7 +32,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pacingpseudo_torch.models.norm import BatchNorm2d
+from pacingpseudo_torch.ops.fused_convbn import (conv_bn_lrelu_train, fusable,
+                                                 get_conv_impl)
 from pacingpseudo_torch.ops.resize import upsample2x_align_corners
+
+NEGATIVE_SLOPE = 1e-2   # LeakyReLU of every ConvLayer (reference unet.py:193)
 
 
 class Conv2d(nn.Conv2d):
@@ -68,7 +74,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class ConvLayer(nn.Module):
-    """Conv2d -> BatchNorm -> LeakyReLU(1e-2) (reference unet.py:178-193)."""
+    """Conv2d -> BatchNorm -> LeakyReLU(1e-2) (reference unet.py:178-193).
+
+    In training mode, under ``get_conv_impl() == "fused"`` and where the
+    JAX package's gate ``fusable`` admits the shape, the layer runs the
+    fused kernels of ``ops/fused_convbn.py`` with the same parameters and
+    buffers; otherwise (eval mode, frozen BatchNorm, strided or dilated
+    convs) the unfused path.  ``padded_in``/``padded_out`` select the fused
+    path's padded-canvas convention (JAX ``models/unet.py:101-168``): a
+    canvas is an NCHW ``(N, C, H+2, W+2)`` tensor with a zero border whose
+    ``permute(0, 2, 3, 1)`` is the kernels' contiguous NHWC array, so
+    chained layers (DoubleConv) hand it through with no copy.  Only a layer
+    that takes the fused path accepts the flags.
+    """
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, dilation=1,
                  dtype=torch.float32, device=None):
@@ -79,12 +97,40 @@ class ConvLayer(nn.Module):
                            compute_dtype=dtype, device=device)
         self.norm_op = BatchNorm2d(out_ch, device=device)
 
-    def forward(self, x):
-        return F.leaky_relu(self.norm_op(self.conv(x)).to(self.dtype), 1e-2)
+    def fusable(self, h: int, w: int) -> bool:
+        """Whether the JAX gate admits this conv on an ``h`` x ``w`` input."""
+        c = self.conv
+        return fusable(h, w, c.kernel_size[0], c.stride[0], c.dilation[0])
+
+    def is_fused(self, h: int, w: int) -> bool:
+        """Whether an ``h`` x ``w`` input takes the fused path now."""
+        return self.training and get_conv_impl() == "fused" and self.fusable(h, w)
+
+    def forward(self, x, padded_in: bool = False, padded_out: bool = False):
+        edge = 2 if padded_in else 0
+        if self.is_fused(x.shape[2] - edge, x.shape[3] - edge):
+            xp = x.to(self.dtype).permute(0, 2, 3, 1)
+            if not padded_in:
+                xp = F.pad(xp, (0, 0, 1, 1, 1, 1))
+            bn = self.norm_op
+            zp, mean, var = conv_bn_lrelu_train(
+                xp, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias,
+                bn.weight, bn.bias, bn.eps, 1, NEGATIVE_SLOPE)
+            bn.update_running_stats(mean, var)
+            if not padded_out:
+                zp = zp[:, 1:-1, 1:-1, :]
+            return zp.permute(0, 3, 1, 2)
+        if padded_in or padded_out:
+            raise ValueError("padded canvases are the fused path's; this "
+                             "layer takes the unfused path")
+        return F.leaky_relu(self.norm_op(self.conv(x)).to(self.dtype),
+                            NEGATIVE_SLOPE)
 
 
 class DoubleConv(nn.Module):
-    """Two ConvLayers (reference unet.py:154-176)."""
+    """Two ConvLayers (reference unet.py:154-176).  When both take the fused
+    path the padded canvas goes from the first to the second as it is
+    (JAX ``models/unet.py:179-193``); otherwise neither sees a canvas."""
 
     def __init__(self, in_ch, out_ch, stride1=1, dilation=1,
                  dtype=torch.float32, device=None):
@@ -95,7 +141,10 @@ class DoubleConv(nn.Module):
                                      device)
 
     def forward(self, x):
-        return self.conv_layer2(self.conv_layer1(x))
+        h, w = x.shape[2], x.shape[3]
+        chain = self.conv_layer1.is_fused(h, w) and self.conv_layer2.is_fused(h, w)
+        x = self.conv_layer1(x, padded_out=chain)
+        return self.conv_layer2(x, padded_in=chain)
 
 
 class EncBlock(nn.Module):
@@ -203,7 +252,9 @@ class UNet(nn.Module):
         dec3 = self.dec_block3(dec4, enc3)
         dec2 = self.dec_block2(dec3, enc2)
         dec1 = self.dec_block1(dec2, enc1)
-        logits = self.final_conv(dec1).float()
+        # NCHW-contiguous logits on both conv paths: the fused ConvLayer's
+        # output is channels-last, and the 1x1 conv keeps that layout.
+        logits = self.final_conv(dec1).float().contiguous()
         if not self.elab_end_points:
             return {"segmentation/logits": logits}
         return {

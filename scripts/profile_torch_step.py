@@ -3,7 +3,10 @@
     python3 scripts/profile_torch_step.py
 
 Builds the full-width Experiment session of ``chip_smoke.py`` (CHAOS shape,
-batch 12, bf16) with the augmentation inside the step, on raw batches that
+batch 12, bf16) with the augmentation inside the step, under the conv impl
+that ``PACING_CONV_IMPL`` selects (``fused`` or the default ``xla``; run
+``PACING_CONV_IMPL=fused python3 scripts/profile_torch_step.py`` for the
+fused ConvLayer kernels), on raw batches that
 ``chip_smoke.make_raw_pool`` writes and loads, takes 3 warm-up steps, then
 traces 3 steps with ``torch.profiler``.  Prints the card's name and power
 limit, the median step time on the host clock (each step ends in a
@@ -35,6 +38,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import make_raw_pool  # noqa: E402
 from pacingpseudo_torch.aug.engine import make_train_augment_fn  # noqa: E402
 from pacingpseudo_torch.aug.presets import base_params_for, strong_params_for  # noqa: E402
+from pacingpseudo_torch.ops.fused_convbn import get_conv_impl  # noqa: E402
 from pacingpseudo_torch.train.state import create_train_state  # noqa: E402
 from pacingpseudo_torch.train.step import make_pacing_train_step  # noqa: E402
 
@@ -49,6 +53,8 @@ AUGMENT_RANGE = "augment_batch"   # this record_function range
 _FAMILIES = (
     ("fused loss (ours)", ("::fwd_partials_kernel<", "::fwd_finalize_kernel(",
                            "::bwd_kernel<")),
+    ("fused conv (ours)", ("::conv3x3_kernel<", "::bn_sums_kernel<",
+                           "::reduce_rows_kernel(")),
     ("NCHW<->NHWC layout", ("nchwToNhwc", "nhwcToNchw")),
     ("conv / GEMM", ("xmma", "implicit_gemm", "cudnn", "cutlass", "nvjet",
                      "gemm", "conv")),
@@ -101,6 +107,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
 
+    print(f"conv impl {get_conv_impl()} (PACING_CONV_IMPL)", flush=True)
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="profile_pool_") as root:
         raw_batches, _, config = make_raw_pool(root, dev)
@@ -171,7 +178,7 @@ def main() -> None:
         print(f"  {us / n / 1e3:9.4f} ms {count / n:6.0f} x {100 * us / kernel_us:5.1f}%  "
               f"{name[:140]}")
     for name, (us, count) in sorted(by_name.items()):
-        if _family(name) == _FAMILIES[0][0] or "::warp_table_kernel(" in name:
+        if _family(name).endswith("(ours)") or "::warp_table_kernel(" in name:
             print(f"ours: {name}: {us / count:.2f} us per launch, "
                   f"{count / n:.0f} per step")
     print(f"{AUGMENT}: host time of the {AUGMENT_RANGE} range "
