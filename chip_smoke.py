@@ -15,11 +15,14 @@ Phases, each of which exits non-zero on failure:
               plain version with CUDA events beside the bound the card's
               memory rate sets.  Then hold the fused-ConvLayer kernels
               ``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their
-              plain versions in bfloat16 and float32 at ``CONV_CHECK_SHAPES``,
-              and time each (bfloat16) at every fused layer of the step beside
-              its bound, its plain version and the PyTorch call that computes
-              the same function.  Hold the fused path's float32 weight
-              gradient, from bfloat16 inputs, against a float64 sum.
+              plain versions in bfloat16 and float32 at ``CONV_CHECK_SHAPES``
+              (bfloat16 ones cover every (BN, BK) tile pair that ``conv_plan``
+              picks in the step, on the ``"wgmma"`` route; float32, Ci = 1
+              and the ragged shape take ``"simple"``), and time each
+              (bfloat16) at every fused layer of the step beside its bound,
+              its plain version and the PyTorch call that computes the same
+              function.  Hold the fused path's float32 weight gradient, from
+              bfloat16 inputs, against a float64 sum.
 3. parity  -- one train step at a small size in float32, once through the
               kernels and once through the loss library, from the same
               state: the losses and gradients must agree.  Then one such
@@ -49,7 +52,9 @@ Phases, each of which exits non-zero on failure:
               steps; each step launches ``conv_stats`` and ``bn_sums`` once
               per fused ConvLayer (18) and ``conv_pad_out`` once per fused
               layer whose input needs a gradient (17: not the first, which
-              reads the image), and each of the three earlier kernels once.
+              reads the image), and each of the three earlier kernels once;
+              by route, ``conv_stats`` 17 ``"wgmma"`` + 1 ``"simple"`` (Ci =
+              1) and ``conv_pad_out`` 17 ``"wgmma"`` a step.
 
 Phases 1-8 run the default conv impl (``"xla"``, the unfused ConvLayer)
 whatever ``PACING_CONV_IMPL`` says.
@@ -79,7 +84,9 @@ CONV_TIMING_REPS = 20
 # (label, n, ci, co, h, w): where the fused-ConvLayer kernels are held
 # against their plain versions: fused layers of the full-width step (the
 # weak and strong streams stacked, N = 24) and one ragged small shape (Ci
-# and Co off every vector width, W != H).
+# and Co off every vector width, W != H).  In bfloat16 they cover every
+# (BN, BK) pair of the wgmma route that conv_plan picks in the step
+# (check_conv_kernels fails otherwise).
 CONV_CHECK_SHAPES = (
     ("enc1 layer 1", 24, 1, 32, 256, 256),
     ("enc1 layer 2", 24, 32, 32, 256, 256),
@@ -87,7 +94,12 @@ CONV_CHECK_SHAPES = (
     ("enc3 layer 2", 24, 128, 128, 64, 64),
     ("dec5 layer 1", 24, 1024, 512, 32, 32),
     ("ragged", 3, 12, 20, 32, 40),
+    ("enc2 layer 1", 24, 32, 64, 128, 128),
+    ("enc2 layer 2", 24, 64, 64, 128, 128),
+    ("dec2 layer 1", 24, 192, 64, 128, 128),
+    ("dec4 layer 1", 24, 768, 256, 32, 32),
 )
+GEMMS = ("conv_stats", "conv_pad_out")
 CONV_KERNELS = ("conv_stats", "bn_sums", "conv_pad_out")
 FUSED_LAYERS = 18   # ConvLayers of the full-width step on the fused path
 
@@ -305,12 +317,20 @@ def check_conv_kernels(fc, dev):
     largest value) and, in bfloat16, by one rounding step of the result
     (rtol 2**-7, one bfloat16 ulp).  The sums (of conv_stats and bn_sums):
     rtol 1e-4, with an atol of 1e-4 of the row's largest sum for a channel
-    whose sum lies near 0.  The border of ``dxp`` exactly 0."""
+    whose sum lies near 0.  The border of ``dxp`` exactly 0.  Each GEMM
+    must take the route its plan names, and the bfloat16 shapes must cover
+    every (BN, BK) pair that the plan picks at the step's layers."""
+    from scripts.reckon_fused_conv_bounds import conv_layer_shapes
+
     err = dict.fromkeys(CONV_KERNELS, 0.0)
+    covered = set()
     for i, (label, n, ci, co, h, w) in enumerate(CONV_CHECK_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{label} ({ci} -> {co} @ {h}x{w}, N {n}) {str(dtype)[6:]}"
             rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            plans = _gemm_plans(fc, dtype, n, ci, co, h, w)
+            covered |= {(k, p.bn, p.bk) for k, p in plans.items() if p.route == "wgmma"}
+            fc.reset_launch_counts()
             xp, w9, bias, gzp, w9t = _conv_inputs(n, ci, co, h, w, dtype, dev, 300 + i)
             y, sums = fc.conv_stats(xp, w9, bias)
             y_p, sums_p = fc.conv_stats_plain(xp, w9, bias)
@@ -338,9 +358,31 @@ def check_conv_kernels(fc, dev):
             border = torch.cat([dxp[:, 0].flatten(), dxp[:, -1].flatten(),
                                 dxp[:, :, 0].flatten(), dxp[:, :, -1].flatten()])
             _check(bool((border == 0).all()), f"conv_pad_out {tag}: border not zero")
-            print(f"kernels: fused conv {tag} ok", flush=True)
+            for k, p in plans.items():
+                _check(fc.ROUTES[k][p.route] == 1 and sum(fc.ROUTES[k].values()) == 1,
+                       f"{k} {tag}: routes {fc.ROUTES[k]}, plan {p}")
+            print(f"kernels: fused conv {tag} ok ({_route_tag(plans)})", flush=True)
             del xp, w9, gzp, w9t, y, y_p, dxp, dxp_p
+    step = {(k, p.bn, p.bk) for s in conv_layer_shapes(_experiment_config()) if s[6]
+            for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items()
+            if p.route == "wgmma" and (k == "conv_stats" or s[7])}
+    _check(step <= covered, f"check shapes miss the step's wgmma tiles {sorted(step - covered)}")
+    print(f"kernels: the check shapes cover all {len(step)} (kernel, BN, BK) wgmma tiles "
+          "of the step", flush=True)
     return err
+
+
+def _gemm_plans(fc, dtype, n, ci, co, h, w):
+    """The plans of a layer's two GEMMs: conv_stats (N = Co over Ci) and
+    conv_pad_out (N = Ci over Co)."""
+    return {"conv_stats": fc.conv_plan(dtype, n, h, w, ci, co, False),
+            "conv_pad_out": fc.conv_plan(dtype, n, h, w, co, ci, True)}
+
+
+def _route_tag(plans):
+    return ", ".join(f"{k} {p.route}" + (f" BN {p.bn} BK {p.bk} box {p.box_h}x{p.box_w} "
+                                         f"{p.stages} stages" if p.route == "wgmma" else "")
+                     for k, p in plans.items())
 
 
 def check_weight_grad(fc, dev):
@@ -414,6 +456,7 @@ def time_conv_kernels(fc, dev, err, flush):
                                  dy_cl, x_like, w_lib, None, [1, 1], [1, 1], [1, 1],
                                  False, [0, 0], 1, [True, False, False])),
         }
+        plans = _gemm_plans(fc, torch.bfloat16, n, ci, co, h, w)
         line = f"kernels: {name.split('backbone.')[-1]} {ci} -> {co} @ {h}x{w}:"
         costs = kernel_costs(n, ci, co, h, w)
         for k, (fn, plain, library) in calls.items():
@@ -430,16 +473,22 @@ def time_conv_kernels(fc, dev, err, flush):
                   "bytes_ms": t_bytes, "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
             for key, v in ms.items():
                 tot[k][key] += v
-            line += (f" {k} {ms['ms']:.4f} ms (bound {ms['bound_ms']:.4f}, plain "
+            line += (f" {k}" + (f" [{plans[k].route}]" if k in plans else "")
+                     + f" {ms['ms']:.4f} ms (bound {ms['bound_ms']:.4f}, plain "
                      f"{ms['plain_ms']:.4f}" + (f", library {ms['library_ms']:.4f}"
-                                                if library else "") + ");")
+                                                if library else "")
+                     + (f", {tensor_ops / ms['ms'] * 1e-9:.1f} TFLOP/s" if tensor_ops
+                        else "") + ");")
         print(line, flush=True)
         del xp, w9, gzp, w9t, y, x_like, dy_cl, w_lib, w_oihw
     rows = []
     for k in CONV_KERNELS:
         t = tot[k]
         rows.append({"name": k, "route": "cuda",
-                     "source": "pacingpseudo_torch/csrc/fused_convbn.cu",
+                     # The GEMMs' main route is conv_wgmma.cu (the simple
+                     # route and the reduction stay in fused_convbn.cu).
+                     "source": "pacingpseudo_torch/csrc/"
+                               + ("conv_wgmma.cu" if k in GEMMS else "fused_convbn.cu"),
                      "replaces": f"pacingpseudo_tpu/ops/pallas/{replaces[k]}",
                      "launches": None, "max_abs_err": err[k], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -863,7 +912,7 @@ def main() -> None:
     print(f"build: {seconds:.2f} s for {', '.join(_build.SOURCES)}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     # The phases before the last run the default (unfused) ConvLayer,
@@ -891,6 +940,15 @@ def main() -> None:
     layers = [s for s in conv_layer_shapes(config) if s[6]]
     fused_kernels = {**raw_kernels, "conv_stats": len(layers), "bn_sums": len(layers),
                      "conv_pad_out": sum(s[7] for s in layers)}
+    fused_routes = {k: {"wgmma": 0, "simple": 0} for k in GEMMS}
+    for s in layers:
+        for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items():
+            fused_routes[k][p.route] += k == "conv_stats" or s[7]
+    _check(fused_routes == {"conv_stats": {"wgmma": FUSED_LAYERS - 1, "simple": 1},
+                            "conv_pad_out": {"wgmma": FUSED_LAYERS - 1, "simple": 0}},
+           f"train (raw, fused conv): the plan routes {fused_routes} a step; want "
+           f"conv_stats {FUSED_LAYERS - 1} wgmma + 1 simple, conv_pad_out "
+           f"{FUSED_LAYERS - 1} wgmma")
     # The gate and the dx skip are the code under test: hold what they give
     # against the layers JAX fuses at this shape (all but the four dilated
     # ones; enc_block1's first layer reads the image).
@@ -917,9 +975,17 @@ def main() -> None:
                 "train (raw, fused conv)", counters, fused_kernels, dev,
                 lambda: next(raw_batches), augment_fn=augment_fn,
                 generator=torch.Generator(device=dev).manual_seed(config.seed))
+            routes = {k: dict(v) for k, v in fc.ROUTES.items()}
         finally:
             fc.set_conv_impl("xla")
         raw_batches.close()
+        steps = fused_launches["conv_stats"] // len(layers)
+        _check(routes == {k: {r: n * steps for r, n in v.items()}
+                          for k, v in fused_routes.items()},
+               f"train (raw, fused conv): GEMM launches by route {routes} over {steps} "
+               f"steps, expected {fused_routes} a step")
+        print(f"train (raw, fused conv): GEMM launches by route a step {fused_routes}",
+              flush=True)
         print(f"train (raw, fused conv): median step {fused_ms:.3f} ms with the "
               f"fused ConvLayer, {raw_ms:.3f} ms unfused in this run; "
               f"launches a step {fused_kernels}", flush=True)
@@ -928,6 +994,8 @@ def main() -> None:
         row["launches"] = launches[row["name"]]
     for row in conv_rows:
         row["launches"] = fused_launches[row["name"]]
+        if row["name"] in routes:
+            row["gemm_routes"] = routes[row["name"]]
     print(json.dumps({"kernels": rows + conv_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,10 @@
 //   conv3x3_kernel<T, kVec, false> + reduce_rows_kernel  <-  _conv_stats_kernel   (:127)
 //   bn_sums_kernel<T, VEC>          + reduce_rows_kernel  <-  _bn_sums_kernel      (:160)
 //   conv3x3_kernel<T, kVec, true>                         <-  _conv_pad_out_kernel (:201)
+// conv3x3_kernel is the "simple" route of ops/fused_convbn.py's conv_plan():
+// float32, Cin = 1, and shapes that csrc/conv_wgmma.cu's rectangle tiles do
+// not cover exactly.  Every other bfloat16 conv takes conv_wgmma.cu, whose
+// per-M-tile partial rows reduce_rows_kernel adds (fused_convbn_reduce_rows).
 //
 // Layout (the JAX package's): activations NHWC on padded canvases
 // (N, H+2, W+2, C) in the compute dtype T (bfloat16 or float32), contiguous;
@@ -32,7 +36,7 @@
 // kernel does) over the block's rows into one row of partials per block;
 // kernel 5 runs over every pixel of the PADDED output canvas, so the zero
 // border is written by the same coalesced stores (border rows read zeros).
-// No wgmma, TMA or deeper pipeline yet: those are later work.
+// No wgmma, TMA or deeper pipeline: the wgmma route (conv_wgmma.cu) has those.
 //
 // bn_sums_kernel: per channel sum(g') and sum(g' * xhat) with
 // g' = gz * LReLU'(yn), yn = xhat * gamma + beta, xhat = (y - mean) * rstd.
@@ -467,23 +471,36 @@ extern "C" {
 
 // Kernel 3.  dtype 0 = float32, 1 = bfloat16.  xp (n, h+2, w+2, cin),
 // w (9, cin, cout), bias (cout,) float32 -> y (n, h, w, cout) and
-// sums (2, cout) float32 = [sum y, sum y^2]; partials holds
-// ceil(n*h*w / 128) rows of 2*cout floats.
+// sums (2, cout) float32 = [sum y, sum y^2]; partials holds `rows` =
+// ceil(n*h*w / 128) rows of 2*cout floats (cudaErrorInvalidValue for any
+// other count).
 int fused_convbn_conv_stats(const void* xp, const void* w, const void* bias, void* y,
                             void* partials, void* sums, int dtype, int n, int h, int wd,
-                            int cin, int cout, void* stream) {
+                            int cin, int cout, int rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned rows = 0;
+  if ((long long)rows != ((long long)n * h * wd + kBM - 1) / kBM) return (int)cudaErrorInvalidValue;
+  unsigned grid_x = 0;
   cudaError_t err;
   if (dtype == 1)
-    err = launch_conv<__nv_bfloat16, false>(xp, w, bias, y, partials, n, h, wd, cin, cout, st, &rows);
+    err = launch_conv<__nv_bfloat16, false>(xp, w, bias, y, partials, n, h, wd, cin, cout, st,
+                                            &grid_x);
   else if (dtype == 0)
-    err = launch_conv<float, false>(xp, w, bias, y, partials, n, h, wd, cin, cout, st, &rows);
+    err = launch_conv<float, false>(xp, w, bias, y, partials, n, h, wd, cin, cout, st, &grid_x);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   reduce_rows_kernel<<<(2 * cout + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0, st>>>(
-      static_cast<const float*>(partials), (int)rows, 2 * cout, static_cast<float*>(sums));
+      static_cast<const float*>(partials), rows, 2 * cout, static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// out (cols,) float32 = the sum of the (rows, cols) float32 partials, rows in
+// a fixed order: the second half of conv_stats on the wgmma route.
+int fused_convbn_reduce_rows(const void* partials, int rows, int cols, void* out, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+  reduce_rows_kernel<<<(cols + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(partials),
+                                                            rows, cols, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -544,8 +561,6 @@ int fused_convbn_bn_sums(const void* y, const void* gzp, const void* aux, void* 
 int fused_convbn_bn_sums_rows(int dtype, int n, int h, int wd, int co, int sm_count) {
   return bn_geometry(dtype, (long long)n * h * wd, co, sm_count).grid_x;
 }
-
-int fused_convbn_tile_m() { return kBM; }
 
 const char* fused_convbn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -18,15 +18,23 @@ backward folds into the BatchNorm-sums pass:
   package, not a Pallas kernel there either); the conv bias gradient has a
   closed form in the sums.
 
-Kernels (``csrc/fused_convbn.cu``, CUDA C++ for ``sm_90a``):
+Kernels (CUDA C++ for ``sm_90a``):
 
 * ``conv_stats`` replaces ``_conv_stats_kernel`` (``:127``): an implicit
-  GEMM (tensor cores for bfloat16, FMA for float32) with a statistics
-  epilogue, then a fixed-order reduction of the per-block partial rows;
+  GEMM with a statistics epilogue, then a fixed-order reduction of the
+  partial rows;
 * ``bn_sums`` replaces ``_bn_sums_kernel`` (``:160``): 16-byte loads along
-  the channels, per-block partial rows, the same fixed-order reduction;
+  the channels, per-block partial rows, the same fixed-order reduction
+  (``csrc/fused_convbn.cu``);
 * ``conv_pad_out`` replaces ``_conv_pad_out_kernel`` (``:201``): the same
-  GEMM over every pixel of the padded output, border rows reading zeros.
+  GEMM into a zero-bordered padded canvas.
+
+The two GEMMs take the route :func:`conv_plan` picks for the shape:
+``"wgmma"`` (``csrc/conv_wgmma.cu``: TMA, ``wgmma``, a tile fitted to the
+layer; bfloat16 whose image the 128-pixel rectangles tile exactly and whose
+channels are multiples of 32) or ``"simple"`` (``conv3x3_kernel`` of
+``csrc/fused_convbn.cu``: everything else, float32 included).  The plan is
+made before the launch; a route that fails raises, it never falls back.
 
 Layout of every public function here is the JAX package's: padded NHWC
 canvases ``(N, H+2, W+2, C)`` in the compute dtype (bfloat16 or float32),
@@ -38,7 +46,7 @@ On a CPU tensor the wrappers run the plain PyTorch versions
 (:func:`conv_stats_plain`, :func:`bn_sums_plain`,
 :func:`conv_pad_out_plain`); on a CUDA tensor they launch the kernel or
 raise.  ``LAUNCHES`` counts kernel launches (a kernel and its reduction
-count as one).
+count as one); ``ROUTES[kernel][route]`` counts the GEMMs' launches by route.
 
 Selection: :func:`get_conv_impl` (``"fused"`` | ``"xla"``), read once from
 env ``PACING_CONV_IMPL``, default ``"xla"``, as in the JAX package.  Here
@@ -48,6 +56,7 @@ LeakyReLU), so one variable means the same run in both packages.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 
@@ -56,11 +65,73 @@ import torch
 from pacingpseudo_torch.ops import _build
 
 LAUNCHES = {"conv_stats": 0, "bn_sums": 0, "conv_pad_out": 0}
+ROUTES = {k: {"wgmma": 0, "simple": 0} for k in ("conv_stats", "conv_pad_out")}
 IMPLS = ("fused", "xla")
 
 _CONV_IMPL = None   # lazy: resolved from env on first use
 _TH = 16            # the JAX kernels' row tile: the gate keeps its shapes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The GEMMs' tiles (csrc/fused_convbn.cu's kBM; csrc/conv_wgmma.cu's kBM,
+# the wgmma widths it is built for, kSmemLimit and its stage range).
+SIMPLE_TILE_M = 128
+WGMMA_TILE_M = 128
+WGMMA_BN = (256, 128, 96, 64, 32)
+WGMMA_SMEM = 232448          # one block an SM (BN > 96)
+WGMMA_SMEM_TWO_BLOCKS = 115712   # each of two blocks an SM (BN <= 96)
+WGMMA_STAGES = (3, 6)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How one GEMM launch is tiled.  ``rows``: the launch's M tiles (the
+    partial rows of ``conv_stats``).  On the ``"wgmma"`` route an M tile is
+    ``box_h`` rows by ``box_w`` columns of one image, an N tile ``bn``
+    channels, a K tile ``bk`` channels of one tap, ``stages`` K tiles are in
+    flight, and ``grid`` blocks walk the ``rows x cout / bn`` output tiles."""
+    route: str
+    rows: int
+    box_w: int = 0
+    box_h: int = 0
+    bn: int = 0
+    bk: int = 0
+    stages: int = 0
+    grid: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(dtype, n: int, h: int, w: int, cin: int, cout: int,
+              pad_out: bool, sms: int = 132) -> ConvPlan:
+    """The route and tiles of a 3x3 conv over an ``(n, h+2, w+2, cin)``
+    canvas into ``cout`` channels: ``conv_stats`` (``pad_out`` False, output
+    ``(n, h, w, cout)``) or ``conv_pad_out`` (True, output padded), on a card
+    of ``sms`` SMs.  Pure: the tests check it on the CPU."""
+    out_pixels = n * (h + 2) * (w + 2) if pad_out else n * h * w
+    simple = ConvPlan("simple", -(-out_pixels // SIMPLE_TILE_M))
+    box_w = min(w, WGMMA_TILE_M)
+    if (dtype != torch.bfloat16 or cin % 32 or cout % 32 or box_w <= 0
+            or WGMMA_TILE_M % box_w or w % box_w
+            or h % (WGMMA_TILE_M // box_w)):
+        return simple
+    box_h = WGMMA_TILE_M // box_w
+    bn = next(b for b in WGMMA_BN if cout % b == 0)
+    # Two blocks share an SM up to bn = 96, one above.  The ring, the staged
+    # bf16 output tile, conv_stats' [2][8][bn] float32 statistics rows, two
+    # barriers a stage and 1024 bytes to align the ring must fit: 64-channel
+    # K tiles where the channels and the room allow, else 32.
+    per_sm = 2 if bn <= 96 else 1
+    smem = WGMMA_SMEM_TWO_BLOCKS if per_sm == 2 else WGMMA_SMEM
+    fixed = (2 * WGMMA_TILE_M + (0 if pad_out else 64)) * bn + 1024
+    for bk in (64, 32):
+        stage = (WGMMA_TILE_M + bn) * bk * 2
+        stages = min(WGMMA_STAGES[1], (smem - fixed) // (stage + 16))
+        if cin % bk == 0 and stages >= WGMMA_STAGES[0]:
+            break
+    else:
+        return simple
+    rows = n * (h // box_h) * (w // box_w)
+    return ConvPlan("wgmma", rows, box_w, box_h, bn, bk, stages,
+                    min(rows * (cout // bn), per_sm * sms))
 
 
 def set_conv_impl(impl: str) -> None:
@@ -87,6 +158,9 @@ def fusable(h: int, w: int, kernel_size: int, stride: int,
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTES.values():
+        for route in counts:
+            counts[route] = 0
 
 
 def _fold_groups(vec, groups):
@@ -104,7 +178,7 @@ def _tile_groups(vec, groups):
 def _library():
     lib = _build.load("fused_convbn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_convbn_conv_stats.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fused_convbn_conv_stats.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.fused_convbn_conv_stats.restype = i
     lib.fused_convbn_conv_pad_out.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.fused_convbn_conv_pad_out.restype = i
@@ -112,11 +186,34 @@ def _library():
     lib.fused_convbn_bn_sums.restype = i
     lib.fused_convbn_bn_sums_rows.argtypes = [i, i, i, i, i, i]
     lib.fused_convbn_bn_sums_rows.restype = i
-    lib.fused_convbn_tile_m.argtypes = []
-    lib.fused_convbn_tile_m.restype = i
+    lib.fused_convbn_reduce_rows.argtypes = [p, i, i, p, p]
+    lib.fused_convbn_reduce_rows.restype = i
     lib.fused_convbn_error_string.argtypes = [i]
     lib.fused_convbn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_library():
+    lib = _build.load("conv_wgmma")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv_wgmma.argtypes = [p] * 5 + [i] * 13 + [p]
+    lib.conv_wgmma.restype = i
+    return lib
+
+
+def _launch_wgmma(plan, x, w9, bias, out, partials, pad_out):
+    """One launch of the wgmma route; the weights go K-major,
+    ``(Cout, 9·Cin)``, as the kernel's B."""
+    n, hp, wp, cin = x.shape
+    cout = w9.shape[2]
+    wk = w9.permute(2, 0, 1).reshape(cout, 9 * cin).contiguous()
+    return _wgmma_library().conv_wgmma(
+        x.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), None if partials is None else partials.data_ptr(),
+        n, hp - 2, wp - 2, cin, cout, int(pad_out), plan.bn, plan.bk, plan.box_w,
+        plan.box_h, plan.stages, plan.rows, plan.grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,17 +315,25 @@ def conv_stats(xp, w9, bias):
     lib = _library()
     h, w = hp - 2, wp - 2
     dev = xp.device
-    rows = -(-(n * h * w) // lib.fused_convbn_tile_m())
+    plan = conv_plan(xp.dtype, n, h, w, ci, co, False, _sm_count(dev.index))
     y = torch.empty((n, h, w, co), dtype=xp.dtype, device=dev)
-    partials = torch.empty((rows, 2 * co), dtype=torch.float32, device=dev)
+    partials = torch.empty((plan.rows, 2 * co), dtype=torch.float32, device=dev)
     sums = torch.empty((2, co), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.fused_convbn_conv_stats(
-            xp.data_ptr(), w9.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), _DTYPES[xp.dtype], n, h, w,
-            ci, co, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "conv_stats")
+        if plan.route == "wgmma":
+            _raise_on(_launch_wgmma(plan, xp, w9, bias, y, partials, False),
+                      "conv_stats (wgmma)")
+            err = lib.fused_convbn_reduce_rows(partials.data_ptr(), plan.rows, 2 * co,
+                                               sums.data_ptr(), stream)
+        else:
+            err = lib.fused_convbn_conv_stats(
+                xp.data_ptr(), w9.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                partials.data_ptr(), sums.data_ptr(), _DTYPES[xp.dtype], n, h, w,
+                ci, co, plan.rows, stream)
+    _raise_on(err, f"conv_stats ({plan.route})")
     LAUNCHES["conv_stats"] += 1
+    ROUTES["conv_stats"][plan.route] += 1
     return y, sums
 
 
@@ -278,13 +383,17 @@ def conv_pad_out(dyp, w9t):
     _check_kernel_inputs(dyp, w9t)
     dev = dyp.device
     dxp = torch.empty((n, hp, wp, ci), dtype=dyp.dtype, device=dev)
-    lib = _library()
+    plan = conv_plan(dyp.dtype, n, hp - 2, wp - 2, co, ci, True, _sm_count(dev.index))
     with torch.cuda.device(dev):
-        err = lib.fused_convbn_conv_pad_out(
-            dyp.data_ptr(), w9t.data_ptr(), dxp.data_ptr(), _DTYPES[dyp.dtype],
-            n, hp - 2, wp - 2, co, ci, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "conv_pad_out")
+        if plan.route == "wgmma":
+            err = _launch_wgmma(plan, dyp, w9t, None, dxp, None, True)
+        else:
+            err = _library().fused_convbn_conv_pad_out(
+                dyp.data_ptr(), w9t.data_ptr(), dxp.data_ptr(), _DTYPES[dyp.dtype],
+                n, hp - 2, wp - 2, co, ci, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"conv_pad_out ({plan.route})")
     LAUNCHES["conv_pad_out"] += 1
+    ROUTES["conv_pad_out"][plan.route] += 1
     return dxp
 
 

@@ -53,8 +53,8 @@ AUGMENT_RANGE = "augment_batch"   # this record_function range
 _FAMILIES = (
     ("fused loss (ours)", ("::fwd_partials_kernel<", "::fwd_finalize_kernel(",
                            "::bwd_kernel<")),
-    ("fused conv (ours)", ("::conv3x3_kernel<", "::bn_sums_kernel<",
-                           "::reduce_rows_kernel(")),
+    ("fused conv (ours)", ("::conv3x3_kernel<", "::conv_wgmma_kernel<",
+                           "::bn_sums_kernel<", "::reduce_rows_kernel(")),
     ("NCHW<->NHWC layout", ("nchwToNhwc", "nhwcToNchw")),
     ("conv / GEMM", ("xmma", "implicit_gemm", "cudnn", "cutlass", "nvjet",
                      "gemm", "conv")),
