@@ -9,20 +9,26 @@ Phases, each of which exits non-zero on failure:
 2. kernels -- hold ``fused_loss_fwd`` and ``fused_loss_bwd`` against their
               plain PyTorch versions at the train step's shapes (12 x C x
               256 x 256 for C in 2, 4, 5, an all-ignored target, an
-              all-zero mask), and ``warp_table`` against its plain version
-              bit for bit (12 x 256 x 256, 3 x 64 x 96, planes holding the
-              sentinel 255 and the ignored index); then time kernel and
-              plain version with CUDA events beside the bound the card's
-              memory rate sets.  Then hold the fused-ConvLayer kernels
-              ``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their
-              plain versions in bfloat16 and float32 at ``CONV_CHECK_SHAPES``
-              (bfloat16 ones cover every (BN, BK) tile pair that ``conv_plan``
-              picks in the step, on the ``"wgmma"`` route; float32, Ci = 1
-              and the ragged shape take ``"simple"``), and time each
-              (bfloat16) at every fused layer of the step beside its bound,
-              its plain version and the PyTorch call that computes the same
-              function.  Hold the fused path's float32 weight gradient, from
-              bfloat16 inputs, against a float64 sum.
+              all-zero mask), ``warp_table`` against its plain version
+              bit for bit, and ``warp_cubic`` (the direct-read warp) against
+              its plain version and the table route (12 x 256 x 256, 3 x 64
+              x 96, planes holding the sentinel 255 and the ignored index,
+              coordinates with f == 0, y0 + 1 == bound, live regions smaller
+              than the canvas and tied votes; votes bit for bit, the image
+              within 2 float32 ulps and reported if not bit-equal); then
+              time kernel and plain version with CUDA events beside the
+              bound the card's memory rate sets.  Then hold the
+              fused-ConvLayer kernels ``conv_stats``, ``bn_sums`` and
+              ``conv_pad_out`` against their plain versions in bfloat16 and
+              float32 at ``CONV_CHECK_SHAPES`` (bfloat16 ones cover every
+              (BN, BK) tile pair that ``conv_plan`` picks in the step, on
+              the ``"wgmma"`` route; float32, Ci = 1 and the ragged shapes
+              take ``"simple"``; ``bn_sums`` at all four (dtype, vector)
+              variants, two calls bit-equal), and time each (bfloat16) at every fused
+              layer of the step beside its bound, its plain version and the
+              PyTorch call that computes the same function.  Hold the fused
+              path's float32 weight gradient, from bfloat16 inputs, against
+              a float64 sum.
 3. parity  -- one train step at a small size in float32, once through the
               kernels and once through the loss library, from the same
               state: the losses and gradients must agree.  Then one such
@@ -38,13 +44,22 @@ Phases, each of which exits non-zero on failure:
               temporary directory, read it through ``read_fold_split``,
               ``SliceDataset`` and ``BatchLoader``, and run ``augment_batch``
               at full width: shapes, one-hot sums, the valid mask, mean 0 /
-              std 1 inside it, one ``warp_table`` launch per call, and the
-              kernel route equal to the plain route.  Times one call and,
-              inside it, the table build, the row gather and the
-              interpolation + vote.
+              std 1 inside it, one launch of the default route's warp kernel
+              (``warp_cubic`` while ``ops/warp.py``'s ``AUTO_CUDA_ROUTE`` is
+              ``"direct"``) and none of the other per call, and the
+              ``direct``, ``kernel`` (table) and ``plain`` routes equal to
+              the default route bit for bit.  An A/B of ``augment_batch``
+              on the ``direct`` and ``kernel`` routes in turns: the default
+              route must be the faster.  Times the call and, inside it, the
+              table route's parts (table build, row gather, interpolation +
+              vote) beside the ``warp_cubic`` kernel and the direct route.
 7. train (raw) -- the same session with the augmentation inside the step
               (``augment_fn``) on raw batches from the loader: 3 warm-up and
-              5 timed steps, one launch of each of the three kernels a step.
+              5 timed steps, one launch of each of the three kernels a step
+              (the two fused-loss kernels and the default route's warp).
+              Then the same on the other warp route (``train (raw, kernel
+              warp)``): the path of the warp kernel the default route does
+              not launch, timed in the same run.
 8. eval (raw) -- ``eval_preprocess_batch`` on a raw validation batch, then
               the eval step with its ``region_mask``.
 9. train (raw, fused conv) -- the raw session under the conv impl
@@ -55,6 +70,9 @@ Phases, each of which exits non-zero on failure:
               reads the image), and each of the three earlier kernels once;
               by route, ``conv_stats`` 17 ``"wgmma"`` + 1 ``"simple"`` (Ci =
               1) and ``conv_pad_out`` 17 ``"wgmma"`` a step.
+10. launches -- ``bn_sums`` is one kernel on the card per call, in a
+              profiler trace of three calls at each (dtype, vector) variant:
+              last, so that no timed phase follows a profiler session.
 
 Phases 1-8 run the default conv impl (``"xla"``, the unfused ConvLayer)
 whatever ``PACING_CONV_IMPL`` says.
@@ -80,11 +98,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 LOSS_WEIGHTS = (1.0, 0.37, 2.1)   # loss weights for the backward checks
 TIMING_REPS = 100
+# float32 operations a pixel of warp_cubic_kernel, compares included: the
+# anchor 10, the masked Keys weights of both axes 70, their sums 6, the 16
+# tap terms 47, the renormalisation 2, the clip 2, the bilinear weights 6,
+# and two votes over 6 classes of 4 compares, 4 products, 3 sums and one
+# compare each, 144.
+WARP_CUBIC_OPS = 287
 CONV_TIMING_REPS = 20
 # (label, n, ci, co, h, w): where the fused-ConvLayer kernels are held
 # against their plain versions: fused layers of the full-width step (the
-# weak and strong streams stacked, N = 24) and one ragged small shape (Ci
-# and Co off every vector width, W != H).  In bfloat16 they cover every
+# weak and strong streams stacked, N = 24) and two ragged small shapes (Ci
+# and Co off the bfloat16 vector width, W != H; Co off the float32 one), so
+# that bn_sums runs all four of its (dtype, vector) variants.  In bfloat16 they cover every
 # (BN, BK) pair of the wgmma route that conv_plan picks in the step
 # (check_conv_kernels fails otherwise).
 CONV_CHECK_SHAPES = (
@@ -98,6 +123,7 @@ CONV_CHECK_SHAPES = (
     ("enc2 layer 2", 24, 64, 64, 128, 128),
     ("dec2 layer 1", 24, 192, 64, 128, 128),
     ("dec4 layer 1", 24, 768, 256, 32, 32),
+    ("odd Co", 2, 12, 13, 32, 24),
 )
 GEMMS = ("conv_stats", "conv_pad_out")
 CONV_KERNELS = ("conv_stats", "bn_sums", "conv_pad_out")
@@ -170,13 +196,105 @@ def _warp_planes(shape, dev, seed, sentinel=False):
     return image, label, scribble
 
 
-def phase_kernels(fl, wt, dev):
+def _warp_case(shape, dev, seed, sentinel=False):
+    """Planes and coordinates for the direct warp, ``(planes, sy, sx, bound_h,
+    bound_w)``, with every edge case of the anchor and the vote: live regions
+    smaller than the canvas (per-sample bounds), random coordinates from
+    -1.5 to the bound + 0.5 (clamped), integer coordinates (f == 0),
+    coordinates on and past the last live row and column (y0 + 1 ==
+    bound), and half-integer coordinates over a checkerboard of classes 1
+    and 3 in the label and scribble: two classes at 0.25 + 0.25 each, a tie
+    that the lower class must win."""
+    n, h, w = shape
+    planes = _warp_planes(shape, dev, seed, sentinel)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    shrink = torch.arange(n, device=dev) % 3
+    bound_h = (h - 4 * shrink).float()
+    bound_w = (w - 7 * (shrink == 1)).float()
+    bh, bw = bound_h.view(-1, 1, 1), bound_w.view(-1, 1, 1)
+    sy = torch.rand(shape, generator=gen, device=dev) * (bh + 2.0) - 1.5
+    sx = torch.rand(shape, generator=gen, device=dev) * (bw + 2.0) - 1.5
+    cols = torch.arange(w, device=dev, dtype=torch.float32)
+    sy[:, 0] = (cols % 8).view(1, -1)                         # f == 0
+    sx[:, 0] = cols.view(1, -1)
+    sy[:, 1] = bh.view(-1, 1) - 1.0 + (cols % 2).view(1, -1) * 0.5   # y0 + 1 == bound
+    sx[:, 1] = torch.minimum(cols.view(1, -1), bw.view(-1, 1) - 0.25)
+    sy[:, 2] = 8.5                                             # ties
+    sx[:, 2] = 8.5 + (cols % 8).view(1, -1)
+    checker = (torch.arange(8, device=dev).view(-1, 1) + torch.arange(24, device=dev)) % 2
+    for plane in planes[1:]:
+        plane[:, 6:14, 6:30] = 1.0 + 2.0 * checker
+    return planes, sy, sx, bound_h, bound_w
+
+
+def _warp_smooth(shape, dev, seed):
+    """Planes and the coordinates an augmentation warp gives, ``(planes, sy,
+    sx, bound_h, bound_w)``: per sample a rotation by up to 30 degrees and
+    a scale of 0.7-1.4 about the centre, the whole canvas live.  Where the
+    kernel is timed: neighbouring pixels read neighbouring source pixels,
+    as on the main path."""
+    n, h, w = shape
+    planes = _warp_planes(shape, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    theta = (torch.rand(n, 1, 1, generator=gen, device=dev) - 0.5) * (math.pi / 3)
+    scale = 0.7 + 0.7 * torch.rand(n, 1, 1, generator=gen, device=dev)
+    yy = torch.arange(h, device=dev, dtype=torch.float32).view(1, -1, 1) - (h - 1) / 2
+    xx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, -1) - (w - 1) / 2
+    sy = (h - 1) / 2 + (yy * torch.cos(theta) - xx * torch.sin(theta)) / scale
+    sx = (w - 1) / 2 + (yy * torch.sin(theta) + xx * torch.cos(theta)) / scale
+    full = torch.full((n,), float(h), device=dev), torch.full((n,), float(w), device=dev)
+    return planes, sy.contiguous(), sx.contiguous(), *full
+
+
+def _ulps(value):
+    """``value``'s float32 ulp: the gap above the largest power of 2 under it."""
+    return 2.0 ** (math.floor(math.log2(max(value, 2.0 ** -126))) - 23)
+
+
+def check_warp_cubic(wc, warp, dev):
+    """``warp_cubic`` against its plain version and against the table
+    route (``"kernel"``) from the same coordinates, at the ``_warp_planes``
+    shapes with and without the sentinel and on ``_warp_case``'s edge
+    cases.  Class votes equal bit for bit; the image bit-equal, or within 2
+    float32 ulps of its largest value (the stated bound if an order of
+    operations differed).  Returns the max abs error of the image."""
+    err = 0.0
+    for i, (shape, sentinel) in enumerate((((12, 256, 256), False), ((12, 256, 256), True),
+                                           ((3, 64, 96), False), ((3, 64, 96), True))):
+        planes, sy, sx, bh, bw = _warp_case(shape, dev, 250 + i, sentinel)
+        got = wc.warp_sample_cubic(*planes, sy, sx, 6, bh, bw)
+        plain = wc.warp_sample_cubic_plain(*planes, sy, sx, 6, bh, bw)
+        table = warp.fused_warp_sample_cubic(*planes, sy, sx, 6, bh, bw, table_impl="kernel")
+        torch.cuda.synchronize()
+        tag = f"warp_cubic {shape} sentinel={sentinel}"
+        _check(got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+               and got[0].shape == sy.shape, f"{tag}: {got[0].dtype} {got[1].dtype}")
+        _check(bool((plain[1][:, 2] == 1).all() and (plain[2][:, 2] == 1).all()),
+               f"{tag}: a 0.5 / 0.5 tie of classes 1 and 3 did not go to class 1")
+        for name, want in (("plain version", plain), ("table route", table)):
+            for k in (1, 2):
+                _check(torch.equal(got[k], want[k]),
+                       f"{tag}: class votes {k} differ from the {name} in "
+                       f"{int((got[k] != want[k]).sum())} pixels")
+            e = float((got[0] - want[0]).abs().max())
+            tol = 2 * _ulps(float(want[0].abs().max()))
+            _check(bool(torch.isfinite(got[0]).all()) and e <= tol,
+                   f"{tag}: image max abs error {e} against the {name} > {tol}")
+            err = max(err, e)
+            print(f"kernels: {tag} vs {name}: votes equal, image "
+                  + ("bit-equal" if torch.equal(got[0], want[0]) else f"max abs error {e}"),
+                  flush=True)
+    return err
+
+
+def phase_kernels(fl, wt, wc, warp, dev):
     """Kernel vs plain version at the step's shapes; returns the rows of the
     ``kernels`` line, without ``launches``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    err = {"fused_loss_fwd": 0.0, "fused_loss_bwd": 0.0, "warp_table": 0.0}
+    err = {"fused_loss_fwd": 0.0, "fused_loss_bwd": 0.0, "warp_table": 0.0,
+           "warp_cubic": check_warp_cubic(wc, warp, dev)}
     cases = [("random", 2), ("random", 4), ("random", 5),
              ("all_ignored", 5), ("zero_mask", 5)]
     for i, (case, c) in enumerate(cases):
@@ -237,6 +355,12 @@ def phase_kernels(fl, wt, dev):
     # in, the (12, 65536, 24) table out; a copy, so no operations to count.
     planes = _warp_planes((12, 256, 256), dev, seed=8)
     table_bytes = _bytes(*planes) + 24 * _bytes(planes[0])
+    # The direct warp at the same shapes: the planes, sy and sx and the four
+    # per-sample arrays read once, the image and the two class maps written
+    # once; WARP_CUBIC_OPS float32 operations a pixel.
+    wplanes, sy, sx, bh, bw = _warp_smooth((12, 256, 256), dev, seed=9)
+    lo, hi = (t.reshape(-1).contiguous() for t in warp.live_range(wplanes[0], bh, bw))
+    cubic_bytes = _bytes(*wplanes, sy, sx, bh, bw, lo, hi) + 3 * _bytes(sy)
     rows = []
     for name, source, replaces, fn, plain, nbytes, ops in (
             ("fused_loss_fwd", "fused_loss", "fused_loss.py:60",
@@ -250,7 +374,11 @@ def phase_kernels(fl, wt, dev):
             ("warp_table", "warp_table", "warp_table.py:32",
              lambda: wt.build_warp_table(*planes, impl="kernel"),
              lambda: wt.build_warp_table_plain(*planes),
-             table_bytes, 0)):
+             table_bytes, 0),
+            ("warp_cubic", "warp_cubic", "warp_table.py:32",
+             lambda: wc.launch(*wplanes, sy, sx, bh, bw, lo, hi, 6),
+             lambda: wc.warp_sample_cubic_plain(*wplanes, sy, sx, 6, bh, bw),
+             cubic_bytes, WARP_CUBIC_OPS * sy.numel())):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         row = {"name": name, "route": "cuda",
@@ -307,6 +435,46 @@ def _held(name, got, want, atol, rtol=0.0):
     return float(err.max())
 
 
+def _kernels_launched(fn, calls=3):
+    """Names of the kernels the card ran in ``calls`` calls of ``fn`` (after
+    one call outside the trace), from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def check_bn_sums_launches(fc, dev):
+    """One kernel on the card per ``bn_sums`` call, at the first check shape
+    of each (dtype, vector) variant: a profiler trace of three calls.  Run
+    last: no timed phase follows a profiler session."""
+    seen = set()
+    for i, (label, n, ci, co, h, w) in enumerate(CONV_CHECK_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            variant = (str(dtype)[6:], fc.bn_sums_plan(dtype, n, h, w, co).vec)
+            if variant in seen:
+                continue
+            seen.add(variant)
+            xp, w9, bias, gzp, _ = _conv_inputs(n, ci, co, h, w, dtype, dev, 300 + i)
+            y, sums = fc.conv_stats(xp, w9, bias)
+            aux = _bn_aux(sums, n * h * w, dev, 400 + i)
+            names = _kernels_launched(lambda: fc.bn_sums(y, gzp, aux, 1e-2))
+            _check(len(names) == 3 and all("bn_sums_kernel" in k for k in names),
+                   f"bn_sums {label} {variant}: three calls ran the kernels {names}")
+    print(f"bn_sums: one kernel a call in a profiler trace, variants {sorted(seen)}",
+          flush=True)
+
+
 def check_conv_kernels(fc, dev):
     """``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their plain
     versions at ``CONV_CHECK_SHAPES``, in bfloat16 and float32.  Returns the
@@ -319,11 +487,15 @@ def check_conv_kernels(fc, dev):
     rtol 1e-4, with an atol of 1e-4 of the row's largest sum for a channel
     whose sum lies near 0.  The border of ``dxp`` exactly 0.  Each GEMM
     must take the route its plan names, and the bfloat16 shapes must cover
-    every (BN, BK) pair that the plan picks at the step's layers."""
+    every (BN, BK) pair that the plan picks at the step's layers.
+    ``bn_sums``: two calls equal bit for bit, and each (dtype, vector)
+    variant of its plan met (``check_bn_sums_launches`` counts its kernels
+    at the end of the run)."""
     from scripts.reckon_fused_conv_bounds import conv_layer_shapes
 
     err = dict.fromkeys(CONV_KERNELS, 0.0)
     covered = set()
+    bn_variants = {}
     for i, (label, n, ci, co, h, w) in enumerate(CONV_CHECK_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{label} ({ci} -> {co} @ {h}x{w}, N {n}) {str(dtype)[6:]}"
@@ -343,11 +515,15 @@ def check_conv_kernels(fc, dev):
 
             aux = _bn_aux(sums_p, n * h * w, dev, 400 + i)
             got = fc.bn_sums(y, gzp, aux, 1e-2)
+            again = fc.bn_sums(y, gzp, aux, 1e-2)
             want = fc.bn_sums_plain(y, gzp, aux, 1e-2)
             torch.cuda.synchronize()
             row = 1e-4 * want.abs().amax(dim=1, keepdim=True)
             err["bn_sums"] = max(err["bn_sums"],
                                  _held(f"bn_sums {tag}", got, want, row, 1e-4))
+            _check(torch.equal(got, again), f"bn_sums {tag}: two calls differ")
+            plan = fc.bn_sums_plan(dtype, n, h, w, co, fc._sm_count(dev.index))
+            bn_variants.setdefault((str(dtype)[6:], plan.vec), tag)
 
             dxp = fc.conv_pad_out(gzp, w9t)
             dxp_p = fc.conv_pad_out_plain(gzp, w9t)
@@ -361,12 +537,19 @@ def check_conv_kernels(fc, dev):
             for k, p in plans.items():
                 _check(fc.ROUTES[k][p.route] == 1 and sum(fc.ROUTES[k].values()) == 1,
                        f"{k} {tag}: routes {fc.ROUTES[k]}, plan {p}")
-            print(f"kernels: fused conv {tag} ok ({_route_tag(plans)})", flush=True)
+            print(f"kernels: fused conv {tag} ok ({_route_tag(plans)}; bn_sums vec "
+                  f"{plan.vec}, {plan.bx} x {plan.by} threads, grid {plan.grid_x} x "
+                  f"{plan.grid_y}, {plan.rows_per_block} rows a block)", flush=True)
             del xp, w9, gzp, w9t, y, y_p, dxp, dxp_p
     step = {(k, p.bn, p.bk) for s in conv_layer_shapes(_experiment_config()) if s[6]
             for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items()
             if p.route == "wgmma" and (k == "conv_stats" or s[7])}
     _check(step <= covered, f"check shapes miss the step's wgmma tiles {sorted(step - covered)}")
+    _check(sorted(bn_variants) == [("bfloat16", 1), ("bfloat16", 8), ("float32", 1),
+                                   ("float32", 4)],
+           f"bn_sums: the check shapes meet the variants {sorted(bn_variants)}")
+    print(f"kernels: bn_sums two calls bit-equal, variants {sorted(bn_variants)}",
+          flush=True)
     print(f"kernels: the check shapes cover all {len(step)} (kernel, BN, BK) wgmma tiles "
           "of the step", flush=True)
     return err
@@ -784,8 +967,11 @@ def make_raw_pool(root, dev, num_slices=48):
     return batches(), val_loader, config
 
 
-def phase_augment(wt, dev, raw, config, flush):
-    """``augment_batch`` at full width on one raw batch from the loader."""
+def phase_augment(wt, wc, dev, raw, config, flush):
+    """``augment_batch`` at full width on one raw batch from the loader.
+    Returns the train augmentation on the default route and on the other
+    card route of the warp (``"kernel"``, the table, where the default is
+    ``"direct"``, and the reverse)."""
     import dataclasses
 
     from pacingpseudo_torch.aug import engine
@@ -797,16 +983,25 @@ def phase_augment(wt, dev, raw, config, flush):
     strong = strong_params_for(config.augmentations, config.strength)
     _check(base.image_interp == "bicubic" and base.warp_table_impl == "auto",
            f"augment: unexpected defaults {base}")
+    by_route = {r: dataclasses.replace(base, warp_table_impl=r)
+                for r in ("direct", "kernel", "plain")}
+    auto = warp.AUTO_CUDA_ROUTE
+    _check(auto in ("direct", "kernel"), f"augment: auto routes to {auto}")
 
     def run(params, seed=config.seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return engine.augment_batch(raw, gen, params, strong, do_strong=True)
 
+    def launches():
+        return wt.LAUNCHES["warp_table"], wc.LAUNCHES["warp_cubic"]
+
     wt.reset_launch_counts()
+    wc.reset_launch_counts()
     out = run(base)
     torch.cuda.synchronize()
-    _check(wt.LAUNCHES["warp_table"] == 1,
-           f"augment: {wt.LAUNCHES['warp_table']} warp_table launches in one call")
+    want = (0, 1) if auto == "direct" else (1, 0)
+    _check(launches() == want, f"augment: (warp_table, warp_cubic) launches "
+           f"{launches()} in one call on the default route ({auto}), want {want}")
     shapes = {"image": (n, 1, ch, cw), "image_strong": (n, 1, ch, cw),
               "label": (n, c, ch, cw), "scribble": (n, c + 1, ch, cw),
               "valid_mask": (n, 1, ch, cw)}
@@ -831,22 +1026,40 @@ def phase_augment(wt, dev, raw, config, flush):
     _check(not torch.equal(out["image"], out["image_strong"]),
            "augment: the strong image equals the weak image")
 
-    # Kernel route == plain route, from the same raw batch and the same seed.
-    by_kernel = run(dataclasses.replace(base, warp_table_impl="kernel"))
-    by_plain = run(dataclasses.replace(base, warp_table_impl="plain"))
+    # Every route gives the same outputs, from the same raw batch and seed.
+    outs = {r: run(p) for r, p in by_route.items()}
     torch.cuda.synchronize()
-    for k in shapes:
-        _check(torch.equal(by_kernel[k], by_plain[k]) and torch.equal(out[k], by_kernel[k]),
-               f"augment: {k} differs between the kernel and the plain route")
-    _check(wt.LAUNCHES["warp_table"] == 2,
-           f"augment: {wt.LAUNCHES['warp_table']} launches after the auto, kernel "
-           "and plain routes (want 2: the plain route launches none)")
-    print(f"augment: checks ok, valid coverage {float(mask.mean()):.3f}, kernel "
-          "route == plain route", flush=True)
+    for r, o in outs.items():
+        for k in shapes:
+            _check(torch.equal(o[k], out[k]),
+                   f"augment: {k} differs between the {r} route and the default route "
+                   f"({auto}) in {int((o[k] != out[k]).sum())} values, max abs "
+                   f"{float((o[k] - out[k]).abs().max())}")
+    want = (want[0] + 1, want[1] + 1)
+    _check(launches() == want,
+           f"augment: (warp_table, warp_cubic) launches {launches()} after the default, "
+           f"direct, kernel and plain routes, want {want} (the plain route launches none)")
+    print(f"augment: checks ok, valid coverage {float(mask.mean()):.3f}; the direct, "
+          f"kernel and plain routes equal the default route ({auto}) bit for bit",
+          flush=True)
 
-    # What one call costs, and inside it the three parts of the fused warp.
-    # The call is some hundreds of small launches, so its time on the card's
-    # clock includes the gaps the host leaves between them.
+    # What one call costs on the two card routes, in turns (kernel, direct,
+    # direct, kernel, ...), and inside it the parts of the warp.  The call is
+    # many small launches, so its time on the card's clock includes the gaps
+    # the host leaves between them.
+    reps = 10
+    ab = {"kernel": [], "direct": []}
+    for i in range(reps):
+        for r in (("kernel", "direct") if i % 2 == 0 else ("direct", "kernel")):
+            ab[r].append(_time_ms(lambda: run(by_route[r]), flush, 2))
+    ab = {r: statistics.median(v) for r, v in ab.items()}
+    faster = min(ab, key=ab.get)
+    print(f"augment: A/B of augment_batch in turns, median of {reps} calls each: "
+          f"direct {ab['direct']:.4f} ms, kernel (table) {ab['kernel']:.4f} ms; "
+          f"faster: {faster}; auto routes to {auto}", flush=True)
+    _check(faster == auto, f"augment: auto routes to {auto}, but {faster} was faster "
+           f"in this run ({ab})")
+
     draws = engine.draw_base(n, base, torch.Generator(device=dev).manual_seed(1), dev)
     size = raw["size"]
     sy, sx, _, _ = engine.base_source_coordinates(size, draws, base)
@@ -854,22 +1067,34 @@ def phase_augment(wt, dev, raw, config, flush):
     bound_h, bound_w = size[:, 0].float(), size[:, 1].float()
     y0, x0, fy, fx = warp.warp_anchor(sy, sx, bound_h, bound_w)
     table = wt.build_warp_table(*planes)
-    rows = warp.gather_warp_rows(table, y0, x0, cw)
-    reps = 20
+    rows = warp.gather_warp_rows(table, y0, x0, planes[0].shape[2])
+    lo, hi = (t.reshape(-1).contiguous()
+              for t in warp.live_range(planes[0], bound_h, bound_w))
+    treps = 20
     ms = {
-        "augment_batch": _time_ms(lambda: run(base), flush, reps),
-        "augment_batch, plain table": _time_ms(
-            lambda: run(dataclasses.replace(base, warp_table_impl="plain")), flush, reps),
-        "table build": _time_ms(lambda: wt.build_warp_table(*planes), flush, reps),
+        "augment_batch (auto)": _time_ms(lambda: run(base), flush, treps),
+        "augment_batch, plain table": _time_ms(lambda: run(by_route["plain"]), flush, treps),
+        "table build": _time_ms(lambda: wt.build_warp_table(*planes), flush, treps),
         "row gather": _time_ms(
-            lambda: warp.gather_warp_rows(table, y0, x0, cw), flush, reps),
+            lambda: warp.gather_warp_rows(table, y0, x0, planes[0].shape[2]), flush, treps),
         "interpolation + vote": _time_ms(
             lambda: warp.interpolate_warp_rows(rows, planes[0], y0, x0, fy, fx,
-                                               c + 1, bound_h, bound_w), flush, reps),
+                                               c + 1, bound_h, bound_w), flush, treps),
+        "table route warp (build + gather + interpolation + vote)": _time_ms(
+            lambda: warp.fused_warp_sample_cubic(*planes, sy, sx, c + 1, bound_h, bound_w,
+                                                 table_impl="kernel"), flush, treps),
+        "warp_cubic kernel": _time_ms(
+            lambda: wc.launch(*planes, sy.contiguous(), sx.contiguous(), bound_h, bound_w,
+                              lo, hi, c + 1), flush, treps),
+        "direct route warp (live range + warp_cubic)": _time_ms(
+            lambda: wc.warp_sample_cubic(*planes, sy, sx, c + 1, bound_h, bound_w),
+            flush, treps),
     }
     print("augment: ms per call, median of %d with L2 flushed: %s" % (
-        reps, ", ".join(f"{k} {v:.4f}" for k, v in ms.items())), flush=True)
-    return engine.make_train_augment_fn(base, strong, do_strong=True)
+        treps, ", ".join(f"{k} {v:.4f}" for k, v in ms.items())), flush=True)
+    other = "kernel" if auto == "direct" else "direct"
+    return (engine.make_train_augment_fn(base, strong, do_strong=True),
+            engine.make_train_augment_fn(by_route[other], strong, do_strong=True))
 
 
 def phase_eval_raw(state, val_loader, config, dev):
@@ -898,6 +1123,8 @@ def main() -> None:
     from pacingpseudo_torch.ops import _build
     from pacingpseudo_torch.ops import fused_convbn as fc
     from pacingpseudo_torch.ops import fused_loss as fl
+    from pacingpseudo_torch.ops import warp
+    from pacingpseudo_torch.ops import warp_cubic as wc
     from pacingpseudo_torch.ops import warp_table as wt
 
     smi = subprocess.run(
@@ -918,11 +1145,17 @@ def main() -> None:
     # The phases before the last run the default (unfused) ConvLayer,
     # whatever PACING_CONV_IMPL says.
     fc.set_conv_impl("xla")
-    counters = (fl, wt, fc)
+    counters = (fl, wt, wc, fc)
     loss_kernels = {"fused_loss_fwd": 1, "fused_loss_bwd": 1}
-    raw_kernels = {**loss_kernels, "warp_table": 1}
+    # The default route's warp kernel (ops/warp.py AUTO_CUDA_ROUTE) and the
+    # table route's.
+    warp_kernels = {"direct": "warp_cubic", "kernel": "warp_table"}
+    warp_kernel = warp_kernels[warp.AUTO_CUDA_ROUTE]
+    other_route = "kernel" if warp.AUTO_CUDA_ROUTE == "direct" else "direct"
+    raw_kernels = {**loss_kernels, warp_kernel: 1}
+    other_kernels = {**loss_kernels, warp_kernels[other_route]: 1}
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=dev)
-    rows = phase_kernels(fl, wt, dev)
+    rows = phase_kernels(fl, wt, wc, warp, dev)
     conv_rows = time_conv_kernels(fc, dev, check_conv_kernels(fc, dev), flush)
     check_weight_grad(fc, dev)
     phase_parity(dev)
@@ -958,17 +1191,27 @@ def main() -> None:
            f"{FUSED_LAYERS - 1}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as root:
         raw_batches, val_loader, config = make_raw_pool(root, dev)
-        augment_fn = phase_augment(wt, dev, next(raw_batches), config, flush)
+        augment_fn, other_augment_fn = phase_augment(wt, wc, dev, next(raw_batches),
+                                                     config, flush)
         del flush
         state, launches, raw_ms = phase_train(
             "train (raw)", counters, raw_kernels, dev,
             lambda: next(raw_batches), augment_fn=augment_fn,
             generator=torch.Generator(device=dev).manual_seed(config.seed))
         print(f"train (raw): median step {raw_ms:.3f} ms with the augmentation "
-              f"inside, {pre_ms:.3f} ms on the pre-augmented batch: the "
-              f"augmentation adds {raw_ms - pre_ms:.3f} ms a step", flush=True)
+              f"inside ({warp_kernel} warp), {pre_ms:.3f} ms on the pre-augmented batch: "
+              f"the augmentation adds {raw_ms - pre_ms:.3f} ms a step", flush=True)
         phase_eval_raw(state, val_loader, config, dev)
         del state
+        # The other card route of the warp: the path of the warp kernel that
+        # the default route does not launch.
+        name = f"train (raw, {other_route} warp)"
+        _, other_launches, other_ms = phase_train(
+            name, counters, other_kernels, dev,
+            lambda: next(raw_batches), augment_fn=other_augment_fn,
+            generator=torch.Generator(device=dev).manual_seed(config.seed))
+        print(f"{name}: median step {other_ms:.3f} ms with the {other_route} route's "
+              f"warp, {raw_ms:.3f} ms with the default route's in this run", flush=True)
         fc.set_conv_impl("fused")
         try:
             _, fused_launches, fused_ms = phase_train(
@@ -990,8 +1233,13 @@ def main() -> None:
               f"fused ConvLayer, {raw_ms:.3f} ms unfused in this run; "
               f"launches a step {fused_kernels}", flush=True)
 
+    check_bn_sums_launches(fc, dev)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # Each kernel's launches on the path that runs it: the default raw
+        # step, or the raw step on the other warp route for the warp kernel
+        # that the default route does not launch.
+        row["launches"] = (launches if raw_kernels.get(row["name"]) else
+                           other_launches)[row["name"]]
     for row in conv_rows:
         row["launches"] = fused_launches[row["name"]]
         if row["name"] in routes:

@@ -2,7 +2,7 @@
 
 The port's own copy of ``pacingpseudo_tpu/aug/params.py``: the same fields
 and defaults.  Only the values of ``warp_table_impl`` differ (``auto`` |
-``kernel`` | ``plain``, see ``ops/warp_table.py``).
+``direct`` | ``kernel`` | ``plain``, see ``ops/warp.py``).
 
 These replace the reference's transform-object lists + per-dataset config
 modules (reference: datasets/augmentations.py:11-446,
@@ -70,10 +70,15 @@ class BaseAugParams:
     # the single-tap kernel (slightly smoother output).  Labels/scribbles always use the exact 4-tap class vote.
     image_interp: str = "bicubic"
 
-    # Warp gather-table construction (ops/warp_table.py): "auto" (the CUDA
-    # kernel for CUDA tensors, the plain version for CPU tensors), "kernel"
-    # (the CUDA kernel; raises on CPU tensors) or "plain" (rolled planes;
-    # for tests and the on-card comparison).
+    # How the cubic warp fetches its taps (ops/warp.py
+    # fused_warp_sample_cubic): "direct" (no table: the taps straight from
+    # the planes, ops/warp_cubic.py -- one CUDA kernel for CUDA tensors,
+    # its plain version for CPU tensors), "kernel" (the gather table of
+    # ops/warp_table.py built by its CUDA kernel; raises on CPU tensors),
+    # "plain" (that table built by its plain version; for tests and the
+    # on-card comparison) or "auto" (on CUDA tensors ops/warp.py's
+    # AUTO_CUDA_ROUTE, "direct", where the table would be f32, else
+    # "kernel"; on CPU tensors "plain").  Every route gives the same numbers.
     warp_table_impl: str = "auto"
 
     # Storage dtype of the (H*W, 24) gather table: "f32", "bf16", or

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of pacingpseudo_tpu/ops/pallas/fused_convbn.py:
 //   conv3x3_kernel<T, kVec, false> + reduce_rows_kernel  <-  _conv_stats_kernel   (:127)
-//   bn_sums_kernel<T, VEC>          + reduce_rows_kernel  <-  _bn_sums_kernel      (:160)
+//   bn_sums_kernel<T, VEC> (one launch)                  <-  _bn_sums_kernel      (:160)
 //   conv3x3_kernel<T, kVec, true>                         <-  _conv_pad_out_kernel (:201)
 // conv3x3_kernel is the "simple" route of ops/fused_convbn.py's conv_plan():
 // float32, Cin = 1, and shapes that csrc/conv_wgmma.cu's rectangle tiles do
@@ -41,15 +41,21 @@
 // bn_sums_kernel: per channel sum(g') and sum(g' * xhat) with
 // g' = gz * LReLU'(yn), yn = xhat * gamma + beta, xhat = (y - mean) * rstd.
 // It reads y and the centre of the padded cotangent once each, a handful of
-// float32 operations per element, so it is bound by device-memory bytes.
-// Design: each thread owns one 16-byte vector of channels and walks pixels
-// with a grid stride, so every load is a coalesced 16-byte load; per-block
-// partial rows as for kernel 3.
+// float32 operations per element, so it is bound by device-memory bytes
+// (0.4808 ms over the train step's 18 fused layers on an H100).  Its first
+// design (a grid-stride walk over pixels, a 64-bit division per pixel, one
+// 16-byte load pair in flight a thread, a second launch to reduce) took
+// 2.5x that.  This one: the launch's plan (ops/fused_convbn.py
+// bn_sums_plan) gives each block whole output rows, which it walks with
+// pointer increments and no division, four 16-byte load pairs in flight a
+// thread; the fixed-order reduction runs in the same launch, by the last
+// block to finish (an integer ticket, no float atomics).
 //
 // The TPU kernels carried their sums across a sequential grid.  Hopper
-// blocks run in no order, so every sum is two launches: per-block partial
-// rows, then reduce_rows_kernel adds the rows in a fixed order in double
-// precision.  No float atomics: the statistics are the same from run to run.
+// blocks run in no order: every sum is per-block partial rows added in a
+// fixed order in double precision, by reduce_rows_kernel (conv_stats, a
+// second launch) or by the last block (bn_sums).  No float atomics: the
+// statistics are the same from run to run.
 //
 // Plain C interface, loaded with ctypes (pacingpseudo_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() after its launches.
@@ -319,17 +325,36 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) conv3x3_kern
   }
 }
 
-// Backward pass A: per block, one row [sum g' (co), sum g'*xhat (co)] of
-// partials.  Thread (x, y) owns channels [VEC*cv, VEC*cv + VEC) with
-// cv = blockIdx.y * blockDim.x + x, and pixels y, y + blockDim.y, ... of
-// the block's grid-stride walk.  aux = [mean, rstd, gamma, beta] (4, co).
+// Kernel 4.  One launch: a row walk, per-block partial rows, and the fixed-
+// order sum of those rows by whichever block of a channel chunk ends last.
+//
+// Block (bx, by) = (channel vectors, pixel lanes); blockIdx.y picks the
+// chunk of bx channel vectors, blockIdx.x the rows [r0, r0 + rows_per_block)
+// of the (n*h) output rows (img, oh).  Those rows are one contiguous run of
+// pixels of y, and of the centre of gzp apart from a 2-pixel gap between
+// rows and 2*(w+2) more between images.  Thread (x, y) owns channel vector
+// cv = blockIdx.y*bx + x (aux in registers) and walks the run's pixels
+// y, y + by, ... by pointer increments, four pixels (four 16-byte load
+// pairs) in flight.  Per-thread sums in float, then a fixed tree over the
+// pixel lanes in shared memory, one row [sum g' (co), sum g'*xhat (co)] of
+// partials per blockIdx.x (the chunk's columns), then a ticket: the block
+// that draws the chunk's last ticket adds the chunk's partial rows in row
+// order in double precision, writes out and resets the chunk's counter.
+constexpr int kBnUnroll = 4;
+constexpr int kBnBatch = 16;    // partial rows loaded at once by the last block
+constexpr int kBnBlocksPerSm = 2;    // ops/fused_convbn.py BN_SUMS_BLOCKS_PER_SM
+
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads) bn_sums_kernel(
-    const T* __restrict__ y, const T* __restrict__ gzp,
-    const float* __restrict__ aux, float* __restrict__ partials,
-    long long npix, int h, int wd, int co, float slope) {
-  __shared__ float red[2][kThreads * VEC];
-  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads, kBnBlocksPerSm) bn_sums_kernel(
+    const T* __restrict__ y, const T* __restrict__ gzp, const float* __restrict__ aux,
+    float* partials, unsigned* counters, float* __restrict__ out,
+    int n_img, int h, int wd, int co, int rows_per_block, float slope) {
+  __shared__ float red[2][VEC][kThreads];
+  __shared__ double fin[kThreads];
+  __shared__ bool last;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int t = threadIdx.y * bx + threadIdx.x;
+  const int cv = blockIdx.y * bx + threadIdx.x;
   const bool active = (cv + 1) * VEC <= co;
   const int c0 = cv * VEC;
   float mean[VEC], rstd[VEC], gamma[VEC], beta[VEC], s1[VEC], s2[VEC];
@@ -342,64 +367,145 @@ __global__ void __launch_bounds__(kThreads) bn_sums_kernel(
     s1[v] = 0.f;
     s2[v] = 0.f;
   }
-  const long long hw = (long long)h * wd;
-  const long long step = (long long)gridDim.x * blockDim.y;
-  for (long long p = (long long)blockIdx.x * blockDim.y + threadIdx.y; active && p < npix;
-       p += step) {
-    const long long img = p / hw;
-    const int rem = (int)(p - img * hw);
-    const int oh = rem / wd, ow = rem - (rem / wd) * wd;
-    const long long goff = ((img * (h + 2) + oh + 1) * (wd + 2) + ow + 1) * co + c0;
-    float yv[VEC], gv[VEC];
-    if constexpr (VEC * sizeof(T) == 16) {
-      const uint4 ry = *reinterpret_cast<const uint4*>(y + p * co + c0);
-      const uint4 rg = *reinterpret_cast<const uint4*>(gzp + goff);
-      const T* ty = reinterpret_cast<const T*>(&ry);
-      const T* tg = reinterpret_cast<const T*>(&rg);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        yv[v] = to_f(ty[v]);
-        gv[v] = to_f(tg[v]);
+
+  // The block's pixels [p, p_end) of y; q is the same pixel of gzp.  The
+  // one division below is per thread, not per pixel.
+  const long long rows = (long long)n_img * h;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  const long long p_end = r1 * wd;
+  long long p = r0 * wd + threadIdx.y;
+  const long long img = p / ((long long)h * wd);
+  int oh = (int)((p / wd) % h), ow = (int)(p % wd);
+  long long q = p + img * (2LL * h + 2LL * wd + 4) + 2LL * oh + wd + 3;
+  const int gap_img = 2 * (wd + 2);
+  auto advance = [&]() {
+    p += by;
+    q += by;
+    ow += by;
+    while (ow >= wd) {
+      ow -= wd;
+      q += 2;
+      if (++oh == h) {
+        oh = 0;
+        q += gap_img;
       }
-    } else {
+    }
+  };
+
+  while (active && p < p_end) {
+    float yv[kBnUnroll][VEC], gv[kBnUnroll][VEC];
+    bool ok[kBnUnroll];
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        yv[v] = to_f(y[p * co + c0 + v]);
-        gv[v] = to_f(gzp[goff + v]);
+    for (int u = 0; u < kBnUnroll; ++u) {
+      ok[u] = p < p_end;
+      const T* py = y + p * co + c0;
+      const T* pg = gzp + q * co + c0;
+      if constexpr (VEC * sizeof(T) == 16) {
+        uint4 ry = make_uint4(0u, 0u, 0u, 0u), rg = ry;
+        if (ok[u]) {
+          ry = __ldcs(reinterpret_cast<const uint4*>(py));
+          rg = __ldcs(reinterpret_cast<const uint4*>(pg));
+        }
+        const T* ty = reinterpret_cast<const T*>(&ry);
+        const T* tg = reinterpret_cast<const T*>(&rg);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          yv[u][v] = to_f(ty[v]);
+          gv[u][v] = to_f(tg[v]);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          yv[u][v] = ok[u] ? to_f(py[v]) : 0.f;
+          gv[u][v] = ok[u] ? to_f(pg[v]) : 0.f;
+        }
       }
+      advance();
     }
     // Each product and sum rounded on its own (no FMA contraction), as the
     // plain version's separate elementwise ops round: the LeakyReLU branch
     // taken at yn ~ 0 is then the same in both.
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const float xhat = __fmul_rn(__fsub_rn(yv[v], mean[v]), rstd[v]);
-      const float yn = __fadd_rn(__fmul_rn(xhat, gamma[v]), beta[v]);
-      const float g = __fmul_rn(gv[v], yn >= 0.f ? 1.f : slope);
-      s1[v] += g;
-      s2[v] += __fmul_rn(g, xhat);
+    for (int u = 0; u < kBnUnroll; ++u) {
+      if (!ok[u]) continue;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float xhat = __fmul_rn(__fsub_rn(yv[u][v], mean[v]), rstd[v]);
+        const float yn = __fadd_rn(__fmul_rn(xhat, gamma[v]), beta[v]);
+        const float g = __fmul_rn(gv[u][v], yn >= 0.f ? 1.f : slope);
+        s1[v] = __fadd_rn(s1[v], g);
+        s2[v] = __fadd_rn(s2[v], __fmul_rn(g, xhat));
+      }
     }
   }
-  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+
+  // A fixed tree over the pixel lanes: lane ty adds lane ty + s.
 #pragma unroll
   for (int v = 0; v < VEC; ++v) {
-    red[0][t * VEC + v] = s1[v];
-    red[1][t * VEC + v] = s2[v];
+    red[0][v][t] = s1[v];
+    red[1][v][t] = s2[v];
+  }
+  int span = 1;
+  while (span < by) span <<= 1;
+  for (int s = span >> 1; s > 0; s >>= 1) {
+    __syncthreads();
+    if ((int)threadIdx.y < s && (int)threadIdx.y + s < by) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        red[0][v][t] += red[0][v][t + s * bx];
+        red[1][v][t] += red[1][v][t + s * bx];
+      }
+    }
   }
   __syncthreads();
   if (threadIdx.y == 0 && active) {
     float* row = partials + (long long)blockIdx.x * 2 * co;
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
-      float t1 = 0.f, t2 = 0.f;
-      for (int g = 0; g < (int)blockDim.y; ++g) {
-        t1 += red[0][(g * blockDim.x + threadIdx.x) * VEC + v];
-        t2 += red[1][(g * blockDim.x + threadIdx.x) * VEC + v];
-      }
-      row[c0 + v] = t1;
-      row[co + c0 + v] = t2;
+      row[c0 + v] = red[0][v][t];
+      row[co + c0 + v] = red[1][v][t];
     }
+    __threadfence();
   }
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counters + blockIdx.y, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // The chunk's last block: its 2*nch columns over gridDim.x rows, rows in
+  // order, in double; g row groups of the columns, then the groups in order.
+  __threadfence();
+  const int ch0 = blockIdx.y * bx * VEC;
+  const int nch = co - ch0 < bx * VEC ? co - ch0 : bx * VEC;
+  const int ncols = 2 * nch;
+  const int groups = bx * by / ncols;   // >= 1: the entry checks 2*bx*vec <= 256
+  const int col = t % ncols, grp = t / ncols;
+  const int c = col < nch ? ch0 + col : co + ch0 + col - nch;
+  if (grp < groups) {
+    // kBnBatch rows' loads in flight at once, added in row order.
+    const int nrows = (int)gridDim.x;
+    double acc = 0.0;
+    for (int r = grp; r < nrows; r += kBnBatch * groups) {
+      float v[kBnBatch];
+#pragma unroll
+      for (int b = 0; b < kBnBatch; ++b) {
+        const int rb = r + b * groups;
+        v[b] = rb < nrows ? __ldcg(partials + (long long)rb * 2 * co + c) : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < kBnBatch; ++b)
+        if (r + b * groups < nrows) acc += (double)v[b];
+    }
+    fin[t] = acc;
+  }
+  __syncthreads();
+  if (t < ncols) {
+    double acc = 0.0;
+    for (int g2 = 0; g2 < groups; ++g2) acc += fin[g2 * ncols + t];
+    out[c] = (float)acc;
+  }
+  if (t == 0) counters[blockIdx.y] = 0u;
 }
 
 constexpr int kRedX = 32, kRedY = 16;
@@ -420,27 +526,6 @@ __global__ void __launch_bounds__(kRedX * kRedY) reduce_rows_kernel(
     for (int g = 0; g < kRedY; ++g) s += sm[g][threadIdx.x];
     out[col] = (float)s;
   }
-}
-
-// bn_sums_kernel's launch: one 16-byte vector of channels a thread where co
-// allows it (else one channel), up to 32 vectors across a block and the
-// rest of its 256 threads along the pixels; enough blocks along the pixels
-// to keep kBnBlocksPerSm blocks on every SM.
-constexpr int kBnBlocksPerSm = 4;
-struct BnGeometry {
-  int vec, bx, by, grid_x;
-};
-
-BnGeometry bn_geometry(int dtype, long long npix, int co, int sm_count) {
-  BnGeometry g;
-  g.vec = 16 / (dtype == 1 ? 2 : 4);
-  if (co % g.vec) g.vec = 1;
-  g.bx = co / g.vec < 32 ? co / g.vec : 32;
-  g.by = kThreads / g.bx;
-  const long long blocks = (npix + g.by - 1) / g.by;
-  const long long cap = (long long)kBnBlocksPerSm * (sm_count > 0 ? sm_count : 1);
-  g.grid_x = (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-  return g;
 }
 
 // The conv GEMM of kernel 3 (kPadOut false) or kernel 5 (true); returns
@@ -519,47 +604,54 @@ int fused_convbn_conv_pad_out(const void* dyp, const void* w, void* dxp, int dty
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 4.  y (n, h, w, co), gzp (n, h+2, w+2, co), aux (4, co) float32
-// -> out (2, co) float32 = [sum g', sum g' * xhat]; partials holds
-// fused_convbn_bn_sums_rows(...) rows of 2*co floats.
+// Kernel 4, one launch.  y (n, h, w, co), gzp (n, h+2, w+2, co), aux (4, co)
+// float32 -> out (2, co) float32 = [sum g', sum g' * xhat].  The plan
+// (ops/fused_convbn.py bn_sums_plan): vec channels a thread (16 bytes, or 1),
+// bx channel vectors and 256 / bx pixel lanes a block, grid (grid_x,
+// grid_y) with grid_y = ceil(co / vec / bx) chunks of channels and
+// rows_per_block rows of the n*h a blockIdx.x.  partials holds grid_x rows of
+// 2*co floats; counters holds grid_y zeros (left zero again).  Any other
+// plan is cudaErrorInvalidValue.
 int fused_convbn_bn_sums(const void* y, const void* gzp, const void* aux, void* partials,
-                         void* out, int dtype, int n, int h, int wd, int co, float slope,
-                         int sm_count, void* stream) {
+                         void* counters, int n_counters, void* out, int dtype, int n, int h,
+                         int wd, int co, float slope, int vec, int bx, int grid_x, int grid_y,
+                         int rows_per_block, void* stream) {
+  const int full = dtype == 1 ? 8 : 4;
+  const long long rows = (long long)n * h;
+  if ((dtype != 0 && dtype != 1) || n <= 0 || h <= 0 || wd <= 0 || co <= 0 ||
+      !(vec == full || vec == 1) || co % vec || (vec == 1 && co % full == 0) || bx <= 0 ||
+      bx > kThreads || grid_y != (co / vec + bx - 1) / bx || grid_y > n_counters ||
+      rows_per_block <= 0 || grid_x <= 0 ||
+      (long long)grid_x * rows_per_block < rows ||
+      (long long)(grid_x - 1) * rows_per_block >= rows || 2 * bx * vec > kThreads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const long long npix = (long long)n * h * wd;
-  const BnGeometry g = bn_geometry(dtype, npix, co, sm_count);
-  const dim3 grid(g.grid_x, (co / g.vec + g.bx - 1) / g.bx);
-  const dim3 block(g.bx, g.by);
+  const dim3 grid(grid_x, grid_y), block(bx, kThreads / bx);
   const float* a = static_cast<const float*>(aux);
   float* p = static_cast<float*>(partials);
-  if (dtype == 1 && g.vec == 8) {
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  float* o = static_cast<float*>(out);
+  if (dtype == 1) {
     using T = __nv_bfloat16;
-    bn_sums_kernel<T, 8><<<grid, block, 0, st>>>(static_cast<const T*>(y), static_cast<const T*>(gzp),
-                                                 a, p, npix, h, wd, co, slope);
-  } else if (dtype == 1) {
-    using T = __nv_bfloat16;
-    bn_sums_kernel<T, 1><<<grid, block, 0, st>>>(static_cast<const T*>(y), static_cast<const T*>(gzp),
-                                                 a, p, npix, h, wd, co, slope);
-  } else if (g.vec == 4) {
-    bn_sums_kernel<float, 4><<<grid, block, 0, st>>>(static_cast<const float*>(y),
-                                                     static_cast<const float*>(gzp), a, p, npix,
-                                                     h, wd, co, slope);
+    const T* ty = static_cast<const T*>(y);
+    const T* tg = static_cast<const T*>(gzp);
+    if (vec == 8)
+      bn_sums_kernel<T, 8><<<grid, block, 0, st>>>(ty, tg, a, p, cnt, o, n, h, wd, co,
+                                                   rows_per_block, slope);
+    else
+      bn_sums_kernel<T, 1><<<grid, block, 0, st>>>(ty, tg, a, p, cnt, o, n, h, wd, co,
+                                                   rows_per_block, slope);
   } else {
-    bn_sums_kernel<float, 1><<<grid, block, 0, st>>>(static_cast<const float*>(y),
-                                                     static_cast<const float*>(gzp), a, p, npix,
-                                                     h, wd, co, slope);
+    const float* ty = static_cast<const float*>(y);
+    const float* tg = static_cast<const float*>(gzp);
+    if (vec == 4)
+      bn_sums_kernel<float, 4><<<grid, block, 0, st>>>(ty, tg, a, p, cnt, o, n, h, wd, co,
+                                                       rows_per_block, slope);
+    else
+      bn_sums_kernel<float, 1><<<grid, block, 0, st>>>(ty, tg, a, p, cnt, o, n, h, wd, co,
+                                                       rows_per_block, slope);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<(2 * co + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0, st>>>(
-      p, g.grid_x, 2 * co, static_cast<float*>(out));
   return (int)cudaGetLastError();
-}
-
-// Rows of partials that fused_convbn_bn_sums writes for these arguments.
-int fused_convbn_bn_sums_rows(int dtype, int n, int h, int wd, int co, int sm_count) {
-  return bn_geometry(dtype, (long long)n * h * wd, co, sm_count).grid_x;
 }
 
 const char* fused_convbn_error_string(int err) {

@@ -21,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fused_loss", "warp_table", "fused_convbn", "conv_wgmma")
+SOURCES = ("fused_loss", "warp_table", "warp_cubic", "fused_convbn", "conv_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,9 +23,10 @@ Kernels (CUDA C++ for ``sm_90a``):
 * ``conv_stats`` replaces ``_conv_stats_kernel`` (``:127``): an implicit
   GEMM with a statistics epilogue, then a fixed-order reduction of the
   partial rows;
-* ``bn_sums`` replaces ``_bn_sums_kernel`` (``:160``): 16-byte loads along
-  the channels, per-block partial rows, the same fixed-order reduction
-  (``csrc/fused_convbn.cu``);
+* ``bn_sums`` replaces ``_bn_sums_kernel`` (``:160``): one launch that
+  walks whole output rows with 16-byte loads along the channels, as
+  :func:`bn_sums_plan` partitions them, and adds its per-block partial rows
+  in a fixed order in the same launch (``csrc/fused_convbn.cu``);
 * ``conv_pad_out`` replaces ``_conv_pad_out_kernel`` (``:201``): the same
   GEMM into a zero-bordered padded canvas.
 
@@ -45,8 +46,9 @@ BatchNorm parameters per logical channel, physical channel ``g*C + i``.
 On a CPU tensor the wrappers run the plain PyTorch versions
 (:func:`conv_stats_plain`, :func:`bn_sums_plain`,
 :func:`conv_pad_out_plain`); on a CUDA tensor they launch the kernel or
-raise.  ``LAUNCHES`` counts kernel launches (a kernel and its reduction
-count as one); ``ROUTES[kernel][route]`` counts the GEMMs' launches by route.
+raise.  ``LAUNCHES`` counts kernel launches (``conv_stats``' kernel and its
+reduction count as one; ``bn_sums`` is one launch); ``ROUTES[kernel][route]``
+counts the GEMMs' launches by route.
 
 Selection: :func:`get_conv_impl` (``"fused"`` | ``"xla"``), read once from
 env ``PACING_CONV_IMPL``, default ``"xla"``, as in the JAX package.  Here
@@ -80,6 +82,13 @@ WGMMA_BN = (256, 128, 96, 64, 32)
 WGMMA_SMEM = 232448          # one block an SM (BN > 96)
 WGMMA_SMEM_TWO_BLOCKS = 115712   # each of two blocks an SM (BN <= 96)
 WGMMA_STAGES = (3, 6)
+
+# bn_sums (csrc/fused_convbn.cu's kThreads, kBnBlocksPerSm): 256 threads a
+# block, at most BN_SUMS_VECTORS channel vectors across it, two blocks an SM.
+BN_SUMS_THREADS = 256
+BN_SUMS_VECTORS = 8
+BN_SUMS_BLOCKS_PER_SM = 2
+BN_SUMS_COUNTERS = 1024      # ticket counters a device (one per channel chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +143,42 @@ def conv_plan(dtype, n: int, h: int, w: int, cin: int, cout: int,
                     min(rows * (cout // bn), per_sm * sms))
 
 
+@dataclasses.dataclass(frozen=True)
+class BnSumsPlan:
+    """How one ``bn_sums`` launch walks ``y``.  A thread holds ``vec``
+    channels (16 bytes, or 1 where Co is not a multiple of that); a block
+    ``bx`` channel vectors by ``by`` pixel lanes; ``grid_y`` chunks of
+    ``bx`` vectors cover the channels and ``grid_x`` blocks each take
+    ``rows_per_block`` whole output rows ``(img, oh)`` of the ``n*h``
+    (the last block fewer).  ``grid_x`` is also the count of partial rows
+    the launch writes and adds."""
+    vec: int
+    bx: int
+    by: int
+    grid_x: int
+    grid_y: int
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=None)
+def bn_sums_plan(dtype, n: int, h: int, w: int, co: int,
+                 sm_count: int = 132) -> BnSumsPlan:
+    """The row partition of ``bn_sums`` over ``y`` ``(n, h, w, co)`` on a
+    card of ``sm_count`` SMs: about ``BN_SUMS_BLOCKS_PER_SM`` blocks an SM
+    in one wave, each with an equal share of whole rows.  Pure: the tests
+    check it on the CPU, the C entry refuses any other plan."""
+    full = 16 // (2 if dtype == torch.bfloat16 else 4)
+    vec = full if co % full == 0 else 1
+    vectors = co // vec
+    bx = min(vectors, BN_SUMS_VECTORS)
+    grid_y = -(-vectors // bx)
+    rows = n * h
+    target = max(1, BN_SUMS_BLOCKS_PER_SM * max(sm_count, 1) // grid_y)
+    per_block = -(-rows // min(rows, target))
+    return BnSumsPlan(vec, bx, BN_SUMS_THREADS // bx, -(-rows // per_block),
+                      grid_y, per_block)
+
+
 def set_conv_impl(impl: str) -> None:
     global _CONV_IMPL
     if impl not in IMPLS:
@@ -182,10 +227,8 @@ def _library():
     lib.fused_convbn_conv_stats.restype = i
     lib.fused_convbn_conv_pad_out.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.fused_convbn_conv_pad_out.restype = i
-    lib.fused_convbn_bn_sums.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.fused_convbn_bn_sums.argtypes = [p, p, p, p, p, i, p] + [i] * 5 + [f] + [i] * 5 + [p]
     lib.fused_convbn_bn_sums.restype = i
-    lib.fused_convbn_bn_sums_rows.argtypes = [i, i, i, i, i, i]
-    lib.fused_convbn_bn_sums_rows.restype = i
     lib.fused_convbn_reduce_rows.argtypes = [p, i, i, p, p]
     lib.fused_convbn_reduce_rows.restype = i
     lib.fused_convbn_error_string.argtypes = [i]
@@ -214,6 +257,15 @@ def _launch_wgmma(plan, x, w9, bias, out, partials, pad_out):
         n, hp - 2, wp - 2, cin, cout, int(pad_out), plan.bn, plan.bk, plan.box_w,
         plan.box_h, plan.stages, plan.rows, plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_sums_counters(index: int):
+    """``bn_sums``' ticket counters on card ``index``: zeros, allocated once;
+    each launch leaves them zero again.  Calls on one card share them, so
+    they run on one stream at a time."""
+    return torch.zeros(BN_SUMS_COUNTERS, dtype=torch.int32,
+                       device=torch.device("cuda", index))
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,16 +407,16 @@ def bn_sums(y, gzp, aux, slope: float):
         return bn_sums_plain(y, gzp, aux, slope)
     _check_kernel_inputs(y, gzp, aux)
     dev = y.device
-    lib = _library()
-    dtype, sms = _DTYPES[y.dtype], _sm_count(dev.index)
-    rows = lib.fused_convbn_bn_sums_rows(dtype, n, h, w, co, sms)
-    partials = torch.empty((rows, 2 * co), dtype=torch.float32, device=dev)
+    plan = bn_sums_plan(y.dtype, n, h, w, co, _sm_count(dev.index))
+    counters = _bn_sums_counters(dev.index)
+    partials = torch.empty((plan.grid_x, 2 * co), dtype=torch.float32, device=dev)
     out = torch.empty((2, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.fused_convbn_bn_sums(
+        err = _library().fused_convbn_bn_sums(
             y.data_ptr(), gzp.data_ptr(), aux.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), dtype, n, h, w, co, float(slope), sms,
-            torch.cuda.current_stream(dev).cuda_stream)
+            counters.data_ptr(), counters.numel(), out.data_ptr(), _DTYPES[y.dtype],
+            n, h, w, co, float(slope), plan.vec, plan.bx, plan.grid_x, plan.grid_y,
+            plan.rows_per_block, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "bn_sums")
     LAUNCHES["bn_sums"] += 1
     return out

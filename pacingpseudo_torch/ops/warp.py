@@ -28,6 +28,11 @@ from pacingpseudo_torch.ops.warp_table import build_warp_table
 
 TABLE_DTYPES = {"auto": torch.float32, "f32": torch.float32,
                 "bf16": torch.bfloat16}
+CUBIC_IMPLS = ("auto", "direct", "kernel", "plain")
+# What "auto" runs on a CUDA tensor: the direct-read warp, which
+# chip_smoke.py's augment phase times against the table route ("kernel")
+# in the same run and fails if it is not the faster of the two.
+AUTO_CUDA_ROUTE = "direct"
 
 
 def _per_sample(value, like):
@@ -109,10 +114,10 @@ def _bilinear_weights(fy, fx):
     return ((1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx), fy * fx)
 
 
-def _corner_votes(rows, bases, weights, num_values):
-    """One class vote per ``base``: the four corner classes sit in lanes
-    ``base .. base+3`` of the gathered ``rows``."""
-    return [_vote_argmax([(rows[..., base + k], weights[k]) for k in range(4)],
+def _corner_votes(lane, bases, weights, num_values):
+    """One class vote per ``base``: the four corner classes are the taps
+    ``lane(base) .. lane(base+3)``."""
+    return [_vote_argmax([(lane(base + k), weights[k]) for k in range(4)],
                          num_values) for base in bases]
 
 
@@ -154,7 +159,8 @@ def fused_warp_sample(image, label, scribble, sy, sx, num_values,
     w00, w01, w10, w11 = weights = _bilinear_weights(fy, fx)
     img_acc = (w00 * rows[..., 0] + w01 * rows[..., 1]
                + w10 * rows[..., 2] + w11 * rows[..., 3])
-    lab_out, scb_out = _corner_votes(rows, (4, 8), weights, num_values)
+    lab_out, scb_out = _corner_votes(lambda k: rows[..., k], (4, 8), weights,
+                                     num_values)
     return img_acc, lab_out, scb_out
 
 
@@ -188,10 +194,29 @@ def gather_warp_rows(table, y0, x0, width: int):
     return _take_rows(table, y0 * width + x0).float()
 
 
-def interpolate_warp_rows(rows, image, y0, x0, fy, fx, num_values,
-                          bound_h, bound_w, cubic_a: float = -0.5):
-    """Cubic image interpolation and bilinear class votes from gathered
-    table rows (the tail of :func:`fused_warp_sample_cubic`)."""
+def live_range(image, bound_h, bound_w):
+    """``(lo, hi)``, each ``(N, 1, 1)``: the smallest and largest value of
+    each sample's live region ``[0, bound_h) x [0, bound_w)`` of ``image``
+    (N, H, W), the range the cubic warp clips to."""
+    bh_i = _per_sample(bound_h, image).to(torch.int64)
+    bw_i = _per_sample(bound_w, image).to(torch.int64)
+    _, h, w = image.shape
+    iy = torch.arange(h, device=image.device).view(1, h, 1)
+    ix = torch.arange(w, device=image.device).view(1, 1, w)
+    live = (iy < bh_i) & (ix < bw_i)
+    inf = float("inf")
+    lo = torch.where(live, image, inf).amin(dim=(1, 2), keepdim=True)
+    hi = torch.where(live, image, -inf).amax(dim=(1, 2), keepdim=True)
+    return lo, hi
+
+
+def cubic_taps_and_votes(lane, image, y0, x0, fy, fx, num_values,
+                         bound_h, bound_w, cubic_a: float = -0.5):
+    """Cubic image interpolation and bilinear class votes from the 24 taps
+    of each output pixel, ``lane(k)`` (N, h, w) for k in 0..23 in the
+    table's lane order (``ops/warp_table.py``), however they were fetched.
+    Every product and sum is its own elementwise op, so each rounds on its
+    own: ``csrc/warp_cubic.cu`` repeats this order of operations."""
     bh_i = _per_sample(bound_h, image).to(torch.int64)
     bw_i = _per_sample(bound_w, image).to(torch.int64)
 
@@ -205,24 +230,26 @@ def interpolate_warp_rows(rows, image, y0, x0, fy, fx, num_values,
     img_acc = None
     for r in range(4):
         for c in range(4):
-            term = wy[r] * wx[c] * rows[..., 4 * r + c]
+            term = wy[r] * wx[c] * lane(4 * r + c)
             img_acc = term if img_acc is None else img_acc + term
     img_acc = img_acc / (ny * nx)
 
     # live-region range clip (reference clip=True, augmentations.py:214,:257)
-    _, h, w = image.shape
-    iy = torch.arange(h, device=image.device).view(1, h, 1)
-    ix = torch.arange(w, device=image.device).view(1, 1, w)
-    live = (iy < bh_i) & (ix < bw_i)
-    inf = float("inf")
-    lo = torch.where(live, image, inf).amin(dim=(1, 2), keepdim=True)
-    hi = torch.where(live, image, -inf).amax(dim=(1, 2), keepdim=True)
+    lo, hi = live_range(image, bound_h, bound_w)
     img_acc = torch.maximum(torch.minimum(img_acc, hi), lo)
 
     # ---- labels/scribbles: exact bilinear class vote (fixed lanes).
-    lab_out, scb_out = _corner_votes(rows, (16, 20), _bilinear_weights(fy, fx),
+    lab_out, scb_out = _corner_votes(lane, (16, 20), _bilinear_weights(fy, fx),
                                      num_values)
     return img_acc, lab_out, scb_out
+
+
+def interpolate_warp_rows(rows, image, y0, x0, fy, fx, num_values,
+                          bound_h, bound_w, cubic_a: float = -0.5):
+    """Cubic image interpolation and bilinear class votes from gathered
+    table rows (the tail of :func:`fused_warp_sample_cubic`)."""
+    return cubic_taps_and_votes(lambda k: rows[..., k], image, y0, x0, fy, fx,
+                                num_values, bound_h, bound_w, cubic_a)
 
 
 def fused_warp_sample_cubic(image, label, scribble, sy, sx, num_values,
@@ -235,28 +262,52 @@ def fused_warp_sample_cubic(image, label, scribble, sy, sx, num_values,
     reference's order-3 resamples, augmentations.py:214/:270/:307);
     labels/scribbles keep the exact 4-tap bilinear class vote.
 
-    Still ONE row gather, on the 24-lane table of ``ops/warp_table.py``:
-    the row at flat ``(y, x)`` packs the image's 4x4 neighbourhood
-    ``img[y-1+r, x-1+c]`` (lanes ``4r+c``) and the 2x2 label/scribble
-    neighbourhoods (lanes 16..19 / 20..23); the gather anchor stays
-    ``(y0, x0)``.  ``table_impl`` is the table's ``impl`` (on a CUDA tensor
-    ``"auto"`` launches the CUDA kernel); ``table_dtype`` its storage type:
-    the table is built in float32 and cast, and all interpolation math
-    stays float32.  Class ids are small integers, exact in bf16, so the
-    votes do not depend on the table's type; only the image taps round.
+    Per output pixel 24 taps: the image's 4x4 neighbourhood
+    ``img[y0-1+r, x0-1+c]`` (lane ``4r+c``) and the 2x2 label/scribble
+    neighbourhoods of ``(y0, x0)`` (lanes 16..19 / 20..23), each index
+    wrapped at the canvas edge.  ``table_impl`` says how they are fetched:
 
-    Edge handling: rolled lanes wrap at the canvas edge, so any tap whose
-    nominal coordinate leaves the live region ``[0, bound)`` gets its
-    cubic weight zeroed and the kernel is renormalised (boundary-kernel
-    convention; interior pixels -- all 16 taps live -- are exact Keys).
-    Out-of-range *bilinear* label taps (``y0+1 == bound``) carry weight
-    exactly 0, so the class votes match :func:`fused_warp_sample` bit for
-    bit.  The cubic sum can overshoot; it is clipped to the live region's
-    value range, mirroring the reference's per-stage ``clip=True``.
+    * ``"direct"``: straight from the three planes, with nothing built
+      (``ops/warp_cubic.py``: on a CUDA tensor one kernel launch that also
+      does all the arithmetic below, on a CPU tensor its plain version);
+    * ``"kernel"`` / ``"plain"``: ONE row gather per pixel from the 24-lane
+      table of ``ops/warp_table.py``, built by its CUDA kernel (raises on a
+      CPU tensor) or by its plain version;
+    * ``"auto"``: ``AUTO_CUDA_ROUTE`` on a CUDA tensor whose table would be
+      float32, else the table's own ``"auto"`` (the kernel on a CUDA
+      tensor, the plain version on a CPU tensor).
+
+    ``table_dtype`` is the table's storage type: it is built in float32 and
+    cast, and all interpolation math stays float32.  Class ids are small
+    integers, exact in bf16, so the votes do not depend on the table's
+    type; only the image taps round.  The direct route reads the float32
+    planes and has no table: it refuses any ``table_dtype`` but float32.
+    Every route returns the same numbers for a float32 table.
+
+    Edge handling: wrapped taps whose nominal coordinate leaves the live
+    region ``[0, bound)`` get their cubic weight zeroed and the kernel is
+    renormalised (boundary-kernel convention; interior pixels -- all 16
+    taps live -- are exact Keys).  Out-of-range *bilinear* label taps
+    (``y0+1 == bound``) carry weight exactly 0, so the class votes match
+    :func:`fused_warp_sample` bit for bit.  The cubic sum can overshoot; it
+    is clipped to the live region's value range, mirroring the reference's
+    per-stage ``clip=True``.
     """
     if table_dtype not in TABLE_DTYPES:
         raise ValueError(f"table_dtype must be one of {tuple(TABLE_DTYPES)}, "
                          f"got {table_dtype!r}")
+    if table_impl not in CUBIC_IMPLS:
+        raise ValueError(f"table_impl must be one of {CUBIC_IMPLS}, got {table_impl!r}")
+    f32_table = TABLE_DTYPES[table_dtype] == torch.float32
+    if table_impl == "auto" and image.device.type == "cuda" and f32_table:
+        table_impl = AUTO_CUDA_ROUTE
+    if table_impl == "direct":
+        if not f32_table:
+            raise ValueError("the direct warp reads the float32 planes: "
+                             f"table_dtype {table_dtype!r} has no meaning there")
+        from pacingpseudo_torch.ops.warp_cubic import warp_sample_cubic  # imports this module
+        return warp_sample_cubic(image, label.float(), scribble.float(), sy, sx,
+                                 num_values, bound_h, bound_w, cubic_a)
     y0, x0, fy, fx = warp_anchor(sy, sx, bound_h, bound_w)
     table = build_warp_table(image, label.float(), scribble.float(),
                              impl=table_impl).to(TABLE_DTYPES[table_dtype])

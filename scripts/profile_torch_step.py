@@ -178,7 +178,8 @@ def main() -> None:
         print(f"  {us / n / 1e3:9.4f} ms {count / n:6.0f} x {100 * us / kernel_us:5.1f}%  "
               f"{name[:140]}")
     for name, (us, count) in sorted(by_name.items()):
-        if _family(name).endswith("(ours)") or "::warp_table_kernel(" in name:
+        if _family(name).endswith("(ours)") or "::warp_table_kernel(" in name \
+                or "::warp_cubic_kernel(" in name:
             print(f"ours: {name}: {us / count:.2f} us per launch, "
                   f"{count / n:.0f} per step")
     print(f"{AUGMENT}: host time of the {AUGMENT_RANGE} range "
