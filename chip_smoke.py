@@ -7,9 +7,13 @@ Phases, each of which exits non-zero on failure:
 1. build   -- compile ``pacingpseudo_torch/csrc/*.cu`` with nvcc into
               ``build/`` (one nvcc per source, all started together).
 2. kernels -- hold ``fused_loss_fwd`` and ``fused_loss_bwd`` against their
-              plain PyTorch versions at the train step's shapes (12 x C x
-              256 x 256 for C in 2, 4, 5, an all-ignored target, an
-              all-zero mask), ``warp_table`` against its plain version
+              plain PyTorch versions at ``FWD_CHECKS``: the train step's
+              shapes (weak and strong as the halves of one 24 x C x 256 x
+              256 tensor, C in 2..5, an all-ignored target, an all-zero
+              mask) on the forward's 16-byte route, an hw that is not a
+              multiple of 4 and planes off 16-byte alignment on its scalar
+              route, one block on each route; three forward calls
+              bit-equal, each on its planned route; ``warp_table`` against its plain version
               bit for bit, and ``warp_cubic`` (the direct-read warp) against
               its plain version and the table route (12 x 256 x 256, 3 x 64
               x 96, planes holding the sentinel 255 and the ignored index,
@@ -70,12 +74,18 @@ Phases, each of which exits non-zero on failure:
               reads the image), and each of the three earlier kernels once;
               by route, ``conv_stats`` 17 ``"wgmma"`` + 1 ``"simple"`` (Ci =
               1) and ``conv_pad_out`` 17 ``"wgmma"`` a step.
-10. launches -- ``bn_sums`` is one kernel on the card per call, in a
-              profiler trace of three calls at each (dtype, vector) variant:
-              last, so that no timed phase follows a profiler session.
+10. loop   -- the epoch loop (``train/loop.py``) at full width on the
+              same pool: 2 epochs of 3 steps with a checkpoint each epoch
+              and the frozen-BN step from epoch 1; then a run stopped after
+              epoch 0, its state restored bit for bit from its checkpoint,
+              and resumed to the end (``phase_loop``).
+11. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
+              card per call, in a profiler trace of three calls at each of
+              their variants: last, so that no timed phase follows a
+              profiler session.
 
-Phases 1-8 run the default conv impl (``"xla"``, the unfused ConvLayer)
-whatever ``PACING_CONV_IMPL`` says.
+Phases 1-8 and 10 run the default conv impl (``"xla"``, the unfused
+ConvLayer) whatever ``PACING_CONV_IMPL`` says.
 Prints the card's name and power limit first, a ``kernels`` JSON line
 before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -161,13 +171,14 @@ def _time_ms(fn, flush, reps=TIMING_REPS):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def _loss_inputs(c, case, dev, seed):
-    """Weak and strong logits as the two halves of one (24, C, H, W) NCHW
-    tensor, as the fused-stream backbone leaves them; int64 target with
-    ``c`` as the ignore index; float32 mask."""
+def _loss_inputs(c, case, dev, seed, n=12, h=256, w=256, offset=0):
+    """Weak and strong logits as the two halves of one (2n, C, H, W) NCHW
+    tensor, as the fused-stream backbone leaves them (``offset`` elements
+    into their buffer: 1 leaves the planes off 16-byte alignment); int64
+    target with ``c`` as the ignore index; float32 mask."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, h, w = 12, 256, 256
-    logits = 2.0 * torch.randn((2 * n, c, h, w), generator=gen, device=dev)
+    buf = 2.0 * torch.randn(offset + 2 * n * c * h * w, generator=gen, device=dev)
+    logits = buf[offset:].view(2 * n, c, h, w)
     tgt = torch.randint(0, c + 1, (n, h, w), generator=gen, device=dev)
     mask = (torch.rand((n, h, w), generator=gen, device=dev) > 0.3).float()
     if case == "all_ignored":
@@ -175,6 +186,24 @@ def _loss_inputs(c, case, dev, seed):
     if case == "zero_mask":
         mask.zero_()
     return logits[:n], logits[n:], tgt, mask
+
+
+# (case, n, C, H, W, offset, route, blocks): where fused_loss_fwd is held
+# against forward_plain.  The step's shape at every C, the edge cases at
+# C = 5, an hw that is not a multiple of 4 and planes off 16-byte alignment
+# (the scalar route), and one block on each route.  ``blocks`` None: any.
+FWD_CHECKS = (
+    ("random", 12, 2, 256, 256, 0, "vec4", None),
+    ("random", 12, 3, 256, 256, 0, "vec4", None),
+    ("random", 12, 4, 256, 256, 0, "vec4", None),
+    ("random", 12, 5, 256, 256, 0, "vec4", None),
+    ("all_ignored", 12, 5, 256, 256, 0, "vec4", None),
+    ("zero_mask", 12, 5, 256, 256, 0, "vec4", None),
+    ("random", 12, 5, 255, 255, 0, "scalar", None),
+    ("random", 3, 4, 64, 64, 1, "scalar", None),
+    ("random", 1, 5, 16, 16, 0, "vec4", 1),
+    ("random", 1, 3, 3, 5, 0, "scalar", 1),
+)
 
 
 def _bytes(*tensors):
@@ -287,25 +316,34 @@ def check_warp_cubic(wc, warp, dev):
     return err
 
 
-def phase_kernels(fl, wt, wc, warp, dev):
-    """Kernel vs plain version at the step's shapes; returns the rows of the
-    ``kernels`` line, without ``launches``."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    err = {"fused_loss_fwd": 0.0, "fused_loss_bwd": 0.0, "warp_table": 0.0,
-           "warp_cubic": check_warp_cubic(wc, warp, dev)}
-    cases = [("random", 2), ("random", 4), ("random", 5),
-             ("all_ignored", 5), ("zero_mask", 5)]
-    for i, (case, c) in enumerate(cases):
-        lw, ls, tgt, mask = _loss_inputs(c, case, dev, seed=100 + i)
+def check_fused_loss(fl, dev):
+    """``fused_loss_fwd`` and ``fused_loss_bwd`` against their plain
+    versions at ``FWD_CHECKS``: the forward on its planned route, three
+    calls bit-equal (the third after the counter was reset twice), rtol
+    1e-5 (sums of non-negative terms in float, then double, against
+    PyTorch's float sums); the backward within 1e-4 of its largest value.
+    Returns the two max abs errors."""
+    err = {"fused_loss_fwd": 0.0, "fused_loss_bwd": 0.0}
+    for i, (case, n, c, h, w, offset, route, blocks) in enumerate(FWD_CHECKS):
+        lw, ls, tgt, mask = _loss_inputs(c, case, dev, 100 + i, n, h, w, offset)
+        tag = f"fwd {case} {n}x{c}x{h}x{w} offset {offset}"
+        plan = fl.forward_plan(lw, ls, tgt, mask)
+        _check(("vec4" if plan.vec == 4 else "scalar") == route
+               and blocks in (None, plan.grid_x * plan.grid_y),
+               f"{tag}: plan {plan}, want route {route} and {blocks} blocks")
+        fl.reset_launch_counts()
         got = fl.fused_loss_forward(lw, ls, tgt, mask, c)
+        again = [fl.fused_loss_forward(lw, ls, tgt, mask, c) for _ in range(2)]
         want = fl.forward_plain(lw, ls, tgt, mask, c)
         torch.cuda.synchronize()
-        _check(bool(torch.isfinite(got).all()), f"fwd {case} C={c}: not finite")
+        _check(fl.ROUTES["fused_loss_fwd"][route] == 3 and fl.LAUNCHES["fused_loss_fwd"] == 3,
+               f"{tag}: launches by route {fl.ROUTES}")
+        _check(bool(torch.isfinite(got).all()), f"{tag}: not finite")
+        _check(all(torch.equal(got, a) for a in again),
+               f"{tag}: three calls differ: {got.tolist()} {[a.tolist() for a in again]}")
         close = torch.allclose(got, want, rtol=1e-5, atol=0.0)
         e = float((got - want).abs().max())
-        _check(close, f"fwd {case} C={c}: {got.tolist()} vs {want.tolist()}")
+        _check(close, f"{tag}: {got.tolist()} vs {want.tolist()}")
         err["fused_loss_fwd"] = max(err["fused_loss_fwd"], e)
         scal = torch.tensor(LOSS_WEIGHTS, device=dev) / want[8:]
         for name, g, w in zip(
@@ -316,9 +354,22 @@ def phase_kernels(fl, wt, wc, warp, dev):
             e = float((g - w).abs().max())
             tol = 1e-4 * float(w.abs().max())
             _check(bool(torch.isfinite(g).all()) and e <= tol,
-                   f"bwd {case} C={c} {name}: max err {e} > {tol}")
+                   f"bwd {tag} {name}: max err {e} > {tol}")
             err["fused_loss_bwd"] = max(err["fused_loss_bwd"], e)
-        print(f"kernels: {case} C={c} ok", flush=True)
+        print(f"kernels: {tag} ok: {route}, {plan.grid_x} x {plan.grid_y} blocks of "
+              f"{plan.chunk} pixels, three calls bit-equal", flush=True)
+
+    return err["fused_loss_fwd"], err["fused_loss_bwd"]
+
+
+def phase_kernels(fl, wt, wc, warp, dev):
+    """Kernel vs plain version at the step's shapes; returns the rows of the
+    ``kernels`` line, without ``launches``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    err = {"warp_table": 0.0, "warp_cubic": check_warp_cubic(wc, warp, dev)}
+    err["fused_loss_fwd"], err["fused_loss_bwd"] = check_fused_loss(fl, dev)
 
     # The warp table is a pure copy: equal bit for bit (tolerance 0).
     for i, (shape, sentinel) in enumerate((((12, 256, 256), False),
@@ -452,6 +503,21 @@ def _kernels_launched(fn, calls=3):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def check_fused_loss_launches(fl, dev):
+    """One kernel on the card per ``fused_loss_fwd`` call, on each route: a
+    profiler trace of three calls at the step's shape (vector route) and at
+    an hw that is not a multiple of 4 (scalar route).  Run last: no timed
+    phase follows a profiler session."""
+    for case in (FWD_CHECKS[3], FWD_CHECKS[6]):
+        _, n, c, h, w, offset, route, _ = case
+        lw, ls, tgt, mask = _loss_inputs(c, "random", dev, 500, n, h, w, offset)
+        names = _kernels_launched(lambda: fl.fused_loss_forward(lw, ls, tgt, mask, c))
+        _check(len(names) == 3 and all("fwd_kernel" in k for k in names),
+               f"fused_loss_fwd {n}x{c}x{h}x{w} ({route}): three calls ran the kernels {names}")
+    print("fused_loss_fwd: one kernel a call in a profiler trace, routes vec4 and scalar",
+          flush=True)
 
 
 def check_bn_sums_launches(fc, dev):
@@ -1117,6 +1183,117 @@ def phase_eval_raw(state, val_loader, config, dev):
            "eval (raw): region_mask does not reach dice_per_class")
 
 
+def _state_tensors(state):
+    """Every tensor of a train state: the model's state_dict (parameters,
+    BatchNorm statistics, the bank) and Adam's state."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.optimizer.state[p].items():
+            out[f"adam.{name}.{k}"] = v
+    return out
+
+
+def _check_states_equal(tag, got, want):
+    a, b = _state_tensors(got), _state_tensors(want)
+    _check(got.step == want.step and sorted(a) == sorted(b),
+           f"{tag}: step {got.step} vs {want.step}, {len(a)} vs {len(b)} tensors")
+    bad = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    _check(not bad, f"{tag}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    return len(a)
+
+
+def phase_loop(dev, counters, data_root, smi):
+    """The epoch loop at full width (``train/loop.py``): the Experiment
+    session with ``ref_quirk_bn_eval_after_first_epoch`` for 2 epochs of 3
+    steps on the synthetic pool, a checkpoint every epoch.  Checks the
+    artifacts, the frozen-BN step in epoch 1 (BatchNorm statistics equal in
+    ``ckp_0`` and ``ckp_1``, parameters not), ``best_ckp`` written exactly
+    when an epoch's Dice beat 0, and one launch of each loss kernel and at
+    least one of the warp kernel a step.  Then a run stopped after epoch 0
+    into a fresh directory: its ``ckp_0`` and a save/restore of its final
+    state give that state back bit for bit (timed), and the resumed run
+    finishes epoch 1.  Prints the epochs' seconds and slices/s and the
+    checkpoint times with the card's name and power limit."""
+    import dataclasses
+    import os
+    import re
+
+    from pacingpseudo_torch.train import checkpoint as ckpt
+    from pacingpseudo_torch.train import loop
+    from pacingpseudo_torch.train.state import create_train_state
+
+    config = dataclasses.replace(_experiment_config(), epoch=2, ckp_interval=1,
+                                 ref_quirk_bn_eval_after_first_epoch=True)
+    steps = 3
+    runs = os.path.join(data_root, "runs")
+    torch.cuda.synchronize()
+    _reset_launch_counts(counters)
+    full_dir, state = loop._train_driver(config, data_root, os.path.join(runs, "full"),
+                                         max_steps_per_epoch=steps, device=dev)
+    torch.cuda.synchronize()
+    launches = _launch_counts(counters)
+    n = config.epoch * steps
+    _check(state.step == n, f"loop: {state.step} steps, want {n}")
+    _check(launches["fused_loss_fwd"] == launches["fused_loss_bwd"] == n
+           and launches["warp_cubic"] >= n
+           and all(v == 0 for k, v in launches.items()
+                   if k not in ("fused_loss_fwd", "fused_loss_bwd", "warp_cubic")),
+           f"loop: kernel launches {launches} over {n} steps")
+    for rel in ("log.txt", "config.json", "valdice.npz", "ckps/ckp_0", "ckps/ckp_1"):
+        _check(os.path.exists(os.path.join(full_dir, rel)), f"loop: {rel} is missing")
+    valdice = np.load(os.path.join(full_dir, "valdice.npz"))["valdice"]
+    _check(valdice.shape == (2,) and bool(np.isfinite(valdice).all()),
+           f"loop: valdice {valdice}")
+    _check(os.path.isdir(os.path.join(full_dir, "best_ckp")) == bool(valdice.max() > 0),
+           f"loop: best_ckp written {os.path.isdir(os.path.join(full_dir, 'best_ckp'))} "
+           f"with valdice {valdice}: it is written exactly when an epoch beats 0")
+    log = open(os.path.join(full_dir, "log.txt")).read()
+    _check("epoch 001 on: frozen-BN step" in log, "loop: no frozen-BN step in epoch 1")
+    sd0, sd1 = (torch.load(os.path.join(full_dir, "ckps", f"ckp_{e}", ckpt.MODEL_FILE))
+                for e in (0, 1))
+    stats = [k for k in sd0 if k.endswith(("running_mean", "running_var"))]
+    _check(all(torch.equal(sd0[k], sd1[k]) for k in stats)
+           and not torch.equal(sd0["backbone.final_conv.weight"],
+                               sd1["backbone.final_conv.weight"]),
+           "loop: epoch 1 moved the BatchNorm statistics or not the weights")
+    epochs = re.findall(r"epoch: (\d+), .*, ([\d.]+) s/epoch, ([\d.]+) slices/s", log)
+    saves = re.findall(r"checkpoint (\S+) saved in ([\d.]+) s", log)
+    _check(len(epochs) == 2, f"loop: epoch lines {epochs}")
+    print(f"loop: {smi}: epochs (s, slices/s) {[(float(a), float(b)) for _, a, b in epochs]}, "
+          f"valdice {valdice.tolist()}, checkpoint saves (s) {saves}, launches {launches}",
+          flush=True)
+    del state
+
+    part_dir = os.path.join(runs, "part")
+    _, stopped = loop._train_driver(config, data_root, part_dir, max_steps_per_epoch=steps,
+                                    stop_after_epoch=0, device=dev)
+    _check(sorted(os.listdir(os.path.join(part_dir, "ckps"))) == ["ckp_0"],
+           "loop: stop_after_epoch=0 did not leave ckp_0 alone")
+    restored = ckpt.restore_checkpoint(os.path.join(part_dir, "ckps", "ckp_0"),
+                                       create_train_state(config, device=dev, seed=7))
+    count = _check_states_equal("loop: ckp_0 restored", restored, stopped)
+    probe = os.path.join(runs, "probe_ckp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(probe, stopped)
+    t1 = time.perf_counter()
+    ckpt.restore_checkpoint(probe, restored)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _check_states_equal("loop: save/restore", restored, stopped)
+    del restored, stopped
+    _, resumed = loop._train_driver(dataclasses.replace(config, resume=True), data_root,
+                                    part_dir, max_steps_per_epoch=steps, device=dev)
+    log = open(os.path.join(part_dir, "log.txt")).read()
+    _check(resumed.step == n and "resumed from" in log and "epoch: 001" in log
+           and os.path.isdir(os.path.join(part_dir, "ckps", "ckp_1")),
+           f"loop: the resumed run ended at step {resumed.step}")
+    print(f"loop: {smi}: stop after epoch 0 and resume: ckp_0 and a save/restore give the "
+          f"stopped state back bit for bit ({count} tensors); checkpoint save "
+          f"{t1 - t0:.3f} s, restore {t2 - t1:.3f} s; the resumed run finished epoch 1",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs on a GPU only")
@@ -1129,8 +1306,8 @@ def main() -> None:
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -1232,8 +1409,10 @@ def main() -> None:
         print(f"train (raw, fused conv): median step {fused_ms:.3f} ms with the "
               f"fused ConvLayer, {raw_ms:.3f} ms unfused in this run; "
               f"launches a step {fused_kernels}", flush=True)
+        phase_loop(dev, counters, root, smi)
 
     check_bn_sums_launches(fc, dev)
+    check_fused_loss_launches(fl, dev)
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

@@ -128,9 +128,14 @@ class BatchLoader:
         if self.shuffle:
             self.rng.shuffle(order)
         n_batches = len(self)
-        chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
-                  for i in range(n_batches)]
+        yield from self.batches([order[i * self.batch_size:(i + 1) * self.batch_size]
+                                 for i in range(n_batches)])
 
+    def batches(self, chunks: Sequence[Sequence[int]]
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """The batches of the given slice indices, one a chunk, in order,
+        prefetched like the loader's own order (the epoch loop passes the
+        order it shuffles itself)."""
         if self.num_threads <= 0:
             for c in chunks:
                 yield self._collate(c)

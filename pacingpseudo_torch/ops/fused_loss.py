@@ -14,8 +14,9 @@ three pixel-wise losses of the pacing objective together:
 Kernels (``csrc/fused_loss.cu``, CUDA C++ for ``sm_90a``):
 
 * ``fused_loss_fwd`` replaces ``_fwd_kernel``
-  (``pacingpseudo_tpu/ops/pallas/fused_loss.py:60``): per-block partial
-  sums, then a fixed-order one-block reduction that also forms the losses;
+  (``pacingpseudo_tpu/ops/pallas/fused_loss.py:60``): one launch on the
+  partition :func:`fused_loss_plan` gives; per-block partial sums, which
+  the block that ends last adds in a fixed order and turns into the losses;
 * ``fused_loss_bwd`` replaces ``_bwd_kernel`` (``:96``): the analytic
   gradient of both streams in one elementwise pass.
 
@@ -30,11 +31,13 @@ gives), ``valid_mask`` ``(N, H, W)`` float32, contiguous.  C is 2..5.
 
 On a CPU tensor the wrappers run the plain PyTorch versions
 (:func:`forward_plain`, :func:`backward_plain`); on a CUDA tensor they
-launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+launch the kernel or raise.  ``LAUNCHES`` counts kernel launches,
+``ROUTES`` the forward's by route.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -43,24 +46,65 @@ import torch.nn.functional as F
 from pacingpseudo_torch.ops import _build
 
 LAUNCHES = {"fused_loss_fwd": 0, "fused_loss_bwd": 0}
+# The forward's launches by route: 16-byte loads (vec 4) or scalar (vec 1).
+ROUTES = {"fused_loss_fwd": {"vec4": 0, "scalar": 0}}
 
 _THREADS = 256          # kThreads in the source
 _SUMS = 5               # kSums in the source
 _OUT = 11               # [5 sums, pce, ent, sce, 3 denominators]
 _EPS = 1e-8
-_BLOCKS_PER_SM = 8      # forward grid: enough blocks in flight to fill the card
+# The forward's partition: FWD_UNROLL groups of vec pixels a thread a
+# pass, one wave of FWD_BLOCKS_PER_SM blocks an SM (kFwdUnroll and
+# kFwdBlocksPerSm in the source).
+FWD_UNROLL = 1
+FWD_BLOCKS_PER_SM = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLossPlan:
+    """The forward's grid: ``grid_x`` blocks of each of the ``n`` images
+    (``grid_y``), block ``bx`` taking that image's pixels ``[bx*chunk,
+    min((bx+1)*chunk, hw))`` in groups of ``vec`` (4: 16-byte loads; 1:
+    scalar loads)."""
+    vec: int
+    chunk: int
+    grid_x: int
+    grid_y: int
+
+
+def fused_loss_plan(n: int, c: int, h: int, w: int, sm_count: int = 132,
+                    aligned: bool = True) -> FusedLossPlan:
+    """The partition of ``fused_loss_fwd`` over ``n`` images of ``h x w``
+    pixels and ``c`` classes on a card of ``sm_count`` SMs: about
+    ``FWD_BLOCKS_PER_SM`` blocks an SM, each a contiguous run of pixels of
+    one image, at least one full pass of the block's groups, the run a
+    multiple of the vector width.  ``vec`` is 4 where ``h*w % 4 == 0`` and
+    the caller's planes are 16-byte aligned (``aligned``), else 1.  Pure:
+    the tests check it on the CPU, the C entry refuses any plan that does
+    not cover the pixels exactly."""
+    if not 2 <= c <= 5 or n < 1 or h < 1 or w < 1:
+        raise ValueError(f"no fused-loss plan for n={n} c={c} h={h} w={w}")
+    hw = h * w
+    vec = 4 if aligned and hw % 4 == 0 else 1
+    per_image = max(1, -(-FWD_BLOCKS_PER_SM * max(sm_count, 1) // n))
+    chunk = max(-(-hw // per_image), _THREADS * FWD_UNROLL * vec)
+    chunk = min(-(-chunk // vec) * vec, hw)
+    return FusedLossPlan(vec, chunk, -(-hw // chunk), n)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load("fused_loss")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_loss_fwd.argtypes = [p, p, p, p, p, p, i, ll, i, ll, ll, i, i, p]
+    lib.fused_loss_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, ll, i, i, i, i, p]
     lib.fused_loss_fwd.restype = i
     lib.fused_loss_bwd.argtypes = [p, p, p, p, p, p, p, i, ll, i, ll, ll, i, i, p]
     lib.fused_loss_bwd.restype = i
@@ -71,6 +115,18 @@ def _library():
     if lib.fused_loss_out_size() != _OUT:
         raise RuntimeError("fused_loss library does not match this wrapper")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_counter(index: int):
+    """``fused_loss_fwd``'s ticket counter on card ``index``: zero,
+    allocated once; each launch leaves it zero again.  Calls on one card
+    share it, so they run on one stream at a time."""
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,6 +225,17 @@ def backward_plain(logits_weak, logits_strong, scb_target, valid_mask, scal,
     return dlw, dls
 
 
+def forward_plan(logits_weak, logits_strong, scb_target, valid_mask
+                 ) -> FusedLossPlan:
+    """The plan :func:`fused_loss_forward` launches on these CUDA tensors:
+    the vector route where the class planes, the target and the mask allow
+    16-byte loads."""
+    n, c, h, w = logits_weak.shape
+    aligned = (logits_weak.stride(0) % 4 == 0 and logits_weak.stride(1) % 4 == 0
+               and _aligned16(logits_weak, logits_strong, scb_target, valid_mask))
+    return fused_loss_plan(n, c, h, w, _sm_count(logits_weak.device.index), aligned)
+
+
 def fused_loss_forward(logits_weak, logits_strong, scb_target, valid_mask,
                        ignore_index: int):
     """The 11-float forward result ``[pce_sum, pce_cnt, ent_sum, sce_sum,
@@ -181,20 +248,22 @@ def fused_loss_forward(logits_weak, logits_strong, scb_target, valid_mask,
     _check_kernel_layout(logits_weak, logits_strong, scb_target, valid_mask)
     n, c, h, w = logits_weak.shape
     dev = logits_weak.device
-    npix = n * h * w
-    grid = max(1, min(-(-npix // _THREADS), _BLOCKS_PER_SM * _sm_count(dev.index)))
-    partials = torch.empty(grid * _SUMS, dtype=torch.float32, device=dev)
+    s_n, s_c = logits_weak.stride(0), logits_weak.stride(1)
+    plan = forward_plan(logits_weak, logits_strong, scb_target, valid_mask)
+    partials = torch.empty(plan.grid_x * plan.grid_y * _SUMS,
+                           dtype=torch.float32, device=dev)
     out = torch.empty(_OUT, dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.fused_loss_fwd(
             logits_weak.data_ptr(), logits_strong.data_ptr(),
             scb_target.data_ptr(), valid_mask.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), c, npix, h * w, logits_weak.stride(0),
-            logits_weak.stride(1), int(ignore_index), grid,
+            _fwd_counter(dev.index).data_ptr(), out.data_ptr(), c, n, h * w,
+            s_n, s_c, int(ignore_index), plan.vec, plan.chunk, plan.grid_x,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "fused_loss_fwd")
     LAUNCHES["fused_loss_fwd"] += 1
+    ROUTES["fused_loss_fwd"]["vec4" if plan.vec == 4 else "scalar"] += 1
     return out
 
 

@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     loaded = json.loads(out.splitlines()[-1])
-    assert "pacingpseudo_torch.train.step" in loaded
+    for module in ("pacingpseudo_torch.train.step", "pacingpseudo_torch.train.loop",
+                   "pacingpseudo_torch.train.checkpoint", "pacingpseudo_torch.cli.train",
+                   "pacingpseudo_torch.utils.meters"):
+        assert module in loaded
     assert [m for m in loaded if _is_forbidden(m)] == []
 
 
