@@ -24,9 +24,12 @@ Phases, each of which exits non-zero on failure:
               bound the card's memory rate sets.  Then hold the
               fused-ConvLayer kernels ``conv_stats``, ``bn_sums`` and
               ``conv_pad_out`` against their plain versions in bfloat16 and
-              float32 at ``CONV_CHECK_SHAPES`` (bfloat16 ones cover every
-              (BN, BK) tile pair that ``conv_plan`` picks in the step, on
-              the ``"wgmma"`` route; float32, Ci = 1 and the ragged shapes
+              float32 at ``CONV_CHECK_SHAPES`` and at every fused layer of
+              the Experiment (N = 24) and upper-bound (N = 12) steps whose
+              ``conv_plan`` and ``bn_sums_plan`` no earlier shape had
+              (``_conv_check_shapes``; in bfloat16 on the ``"wgmma"``
+              route, covering every (BN, BK) tile pair that ``conv_plan``
+              picks in either step; float32, Ci = 1 and the ragged shapes
               take ``"simple"``; ``bn_sums`` at all four (dtype, vector)
               variants, two calls bit-equal), and time each (bfloat16) at every fused
               layer of the step beside its bound, its plain version and the
@@ -37,7 +40,13 @@ Phases, each of which exits non-zero on failure:
               kernels and once through the loss library, from the same
               state: the losses and gradients must agree.  Then one such
               step through the fused conv kernels against the unfused
-              ConvLayer (``parity (fused conv)``).
+              ConvLayer (``parity (fused conv)``: at the model's LeakyReLU
+              slope, with the branches that flip between the two forwards
+              counted, and at slope 1), and the same for one
+              upper-bound step on the bare model (``parity (upper bound,
+              fused conv)``), whose ``loss_ce`` on a batch with crop padding
+              (all-zero label rows, trained as background) is also held
+              against ``F.cross_entropy``.
 4. train   -- the full-width Experiment session (CHAOS shape: 256x256,
               batch 12, 5 classes, init_ch 32, max_ch 512, output stride 8,
               hid_ch 64, bf16 compute), 3 warm-up and 5 timed steps on a
@@ -74,17 +83,41 @@ Phases, each of which exits non-zero on failure:
               reads the image), and each of the three earlier kernels once;
               by route, ``conv_stats`` 17 ``"wgmma"`` + 1 ``"simple"`` (Ci =
               1) and ``conv_pad_out`` 17 ``"wgmma"`` a step.
-10. loop   -- the epoch loop (``train/loop.py``) at full width on the
+10. train (raw, upper bound) -- the Upperbound session at full width on
+              the same pool (the bare UNet at batch 12, the augmentation
+              without the strong stream, CE and Dice on the labels): 3
+              warm-up and 5 timed steps, one ``warp_cubic`` launch a step
+              and no other kernel.  Then the same step under the conv impl
+              ``"fused"``: ``conv_stats``, ``bn_sums`` and ``conv_pad_out``
+              once per fused layer of the bare model (18 / 18 / 17 at N =
+              12, counted by ``conv_layer_shapes``), each GEMM on its
+              planned route.
+11. loop   -- the epoch loop (``train/loop.py``) at full width on the
               same pool: 2 epochs of 3 steps with a checkpoint each epoch
               and the frozen-BN step from epoch 1; then a run stopped after
               epoch 0, its state restored bit for bit from its checkpoint,
               and resumed to the end (``phase_loop``).
-11. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
+12. loop (upper bound) -- ``train_driver`` with the Upperbound session: 2
+              epochs of 3 steps, a checkpoint each epoch (``backbone.*``
+              keys only, the layout the JAX importer reads), the frozen-BN
+              step from epoch 1, validation on the card.
+13. inference -- ``run_inference`` (``evals/infer.py``) on a seeded test
+              split of 384 256x256 slices, the size of one fold of a
+              1,916-slice pool (``make_test_fold``), at batch 8, bf16, from
+              the upper-bound loop's final
+              checkpoint (bare) and the Experiment loop's (siamese: its
+              backbone is taken): ``eval_data.npz`` of shape (N_test, 5)
+              with its uids, Dice in [0, 1] or NaN, each slice's row equal
+              to ``dice_per_class_hard`` of the eval step's argmax for the
+              same slices and weights, no kernel launched; the forward's
+              slices/s alone, the whole run's with HD95 in host threads,
+              and the host metrics' ms a slice in one thread.
+14. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
               card per call, in a profiler trace of three calls at each of
               their variants: last, so that no timed phase follows a
               profiler session.
 
-Phases 1-8 and 10 run the default conv impl (``"xla"``, the unfused
+Phases 1-8 and 11-13 run the default conv impl (``"xla"``, the unfused
 ConvLayer) whatever ``PACING_CONV_IMPL`` says.
 Prints the card's name and power limit first, a ``kernels`` JSON line
 before the last, and as the last line
@@ -93,8 +126,10 @@ Imports nothing of JAX: it drives the port only.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -115,13 +150,17 @@ TIMING_REPS = 100
 # compare each, 144.
 WARP_CUBIC_OPS = 287
 CONV_TIMING_REPS = 20
+# Relative L2 error of a gradient leaf between the fused and unfused
+# float32 steps where no LeakyReLU branch differs: 3e-6 to 6e-6 on an
+# NVIDIA H100 80GB HBM3 (two summation orders; the same step run twice
+# differs by ~3e-6).
+ROUNDOFF_L2 = 5e-5
 # (label, n, ci, co, h, w): where the fused-ConvLayer kernels are held
-# against their plain versions: fused layers of the full-width step (the
-# weak and strong streams stacked, N = 24) and two ragged small shapes (Ci
-# and Co off the bfloat16 vector width, W != H; Co off the float32 one), so
-# that bn_sums runs all four of its (dtype, vector) variants.  In bfloat16 they cover every
-# (BN, BK) pair of the wgmma route that conv_plan picks in the step
-# (check_conv_kernels fails otherwise).
+# against their plain versions, before the layers that _conv_check_shapes
+# adds: fused layers of the full-width step (the weak and strong streams
+# stacked, N = 24), and two ragged small shapes (Ci and Co off the bfloat16
+# vector width, W != H; Co off the float32 one), so that bn_sums runs all
+# four of its (dtype, vector) variants.
 CONV_CHECK_SHAPES = (
     ("enc1 layer 1", 24, 1, 32, 256, 256),
     ("enc1 layer 2", 24, 32, 32, 256, 256),
@@ -543,7 +582,7 @@ def check_bn_sums_launches(fc, dev):
 
 def check_conv_kernels(fc, dev):
     """``conv_stats``, ``bn_sums`` and ``conv_pad_out`` against their plain
-    versions at ``CONV_CHECK_SHAPES``, in bfloat16 and float32.  Returns the
+    versions at ``_conv_check_shapes``, in bfloat16 and float32.  Returns the
     max abs error of each kernel.
 
     Tolerances.  ``y`` and ``dxp``: both sides sum exact products in float32
@@ -562,7 +601,8 @@ def check_conv_kernels(fc, dev):
     err = dict.fromkeys(CONV_KERNELS, 0.0)
     covered = set()
     bn_variants = {}
-    for i, (label, n, ci, co, h, w) in enumerate(CONV_CHECK_SHAPES):
+    shapes = _conv_check_shapes(fc, fc._sm_count(dev.index))
+    for i, (label, n, ci, co, h, w) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{label} ({ci} -> {co} @ {h}x{w}, N {n}) {str(dtype)[6:]}"
             rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
@@ -607,7 +647,9 @@ def check_conv_kernels(fc, dev):
                   f"{plan.vec}, {plan.bx} x {plan.by} threads, grid {plan.grid_x} x "
                   f"{plan.grid_y}, {plan.rows_per_block} rows a block)", flush=True)
             del xp, w9, gzp, w9t, y, y_p, dxp, dxp_p
-    step = {(k, p.bn, p.bk) for s in conv_layer_shapes(_experiment_config()) if s[6]
+    step = {(k, p.bn, p.bk)
+            for config in (_experiment_config(), _upper_bound_config())
+            for s in conv_layer_shapes(config) if s[6]
             for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items()
             if p.route == "wgmma" and (k == "conv_stats" or s[7])}
     _check(step <= covered, f"check shapes miss the step's wgmma tiles {sorted(step - covered)}")
@@ -617,8 +659,39 @@ def check_conv_kernels(fc, dev):
     print(f"kernels: bn_sums two calls bit-equal, variants {sorted(bn_variants)}",
           flush=True)
     print(f"kernels: the check shapes cover all {len(step)} (kernel, BN, BK) wgmma tiles "
-          "of the step", flush=True)
+          f"of the Experiment and upper-bound steps; {len(shapes) - len(CONV_CHECK_SHAPES)} "
+          f"of the {len(shapes)} shapes are step layers whose plans no shape before had",
+          flush=True)
     return err
+
+
+def _conv_check_shapes(fc, sms):
+    """``CONV_CHECK_SHAPES``, then every fused layer of the Experiment step
+    (N = 24) and of the upper-bound step (the bare model, N = 12) whose
+    bfloat16 plans differ from those of every shape before it: the GEMMs'
+    tiles and persistent grid (``conv_plan``) and ``bn_sums``' row
+    partition (``bn_sums_plan``) depend on N as well as on the channels.
+    A check shape runs all three kernels; a layer whose input needs no
+    gradient runs no ``conv_pad_out``, so its plan is not compared."""
+    from scripts.reckon_fused_conv_bounds import conv_layer_shapes
+
+    def plans(n, ci, co, h, w):
+        gemm = _gemm_plans(fc, torch.bfloat16, n, ci, co, h, w)
+        return (gemm["conv_stats"], fc.bn_sums_plan(torch.bfloat16, n, h, w, co, sms),
+                gemm["conv_pad_out"])
+
+    shapes = list(CONV_CHECK_SHAPES)
+    checked = [plans(*s[1:]) for s in shapes]
+    for config in (_experiment_config(), _upper_bound_config()):
+        for name, n, ci, co, h, w, fused, needs_dx in conv_layer_shapes(config):
+            want = plans(n, ci, co, h, w)
+            if fused and not any(c[:2] == want[:2] and (c[2] == want[2] or not needs_dx)
+                                 for c in checked):
+                label = name.replace("backbone.", "").replace(".conv_block.conv_layer",
+                                                              " layer ")
+                shapes.append((f"{label}, {config.session}", n, ci, co, h, w))
+                checked.append(want)
+    return shapes
 
 
 def _gemm_plans(fc, dtype, n, ci, co, h, w):
@@ -841,55 +914,147 @@ def _grads_close_l2(tag, got, want, rtol):
                f"{float(w.norm())}")
 
 
-def phase_parity_fused(fc, dev):
+def _record_signs(model, signs):
+    """Forward hooks that append to ``signs`` where each ConvLayer's output
+    is positive: the sign of its LeakyReLU's pre-activation.  Returns the
+    hooks' handles."""
+    from pacingpseudo_torch.models.unet import ConvLayer
+
+    def hook(module, inputs, out):
+        signs.append(out.detach() > 0)
+
+    return [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, ConvLayer)]
+
+
+def _sign_flips(got, want):
+    """Pixels whose LeakyReLU branch differs between two forwards' signs
+    (``_record_signs``); a fused layer's padded canvas is cut to its
+    centre."""
+    _check(len(got) == len(want), f"{len(got)} vs {len(want)} ConvLayer calls")
+    flips = 0
+    for a, b in zip(got, want):
+        if a.shape[-1] > b.shape[-1]:
+            a = a[..., 1:-1, 1:-1]
+        elif b.shape[-1] > a.shape[-1]:
+            b = b[..., 1:-1, 1:-1]
+        flips += int((a != b).sum())
+    return flips
+
+
+def _parity_batch(upper_bound, dev):
+    """The parity phases' batch (2 x 64 x 64, 4 classes); for the upper
+    bound with its last 8 rows of crop padding: all-zero label rows."""
+    batch = make_batch(2, 64, 4, seed=3, dev=dev)
+    if upper_bound:
+        batch["label"][:, :, 56:] = 0.0
+    return batch
+
+
+def phase_parity_fused(fc, dev, upper_bound=False):
     """One train step at 64x64 in float32, TF32 off for convolutions and
     matmuls, through the fused conv kernels and through the unfused path
-    from the same state.  Losses rtol 1e-4; gradients in L2 within 1e-2 of
-    each leaf's norm: float32 differences of ~5e-5 flip the LeakyReLU
-    branch of single pixels whose pre-activation lies nearer 0 (ROADMAP.md
-    Queue 3).  At 64x64 the gate fuses enc_block1, enc_block2, dec_block2
-    and dec_block1: 8 layers, 7 of which need dx."""
-    from pacingpseudo_torch.config import ExperimentConfig
-    from pacingpseudo_torch.train.state import create_train_state
-    from pacingpseudo_torch.train.step import make_pacing_train_step
+    from the same state: the Experiment step, or with ``upper_bound`` the
+    upper-bound step on the bare model.  At 64x64 the gate fuses
+    enc_block1, enc_block2, dec_block2 and dec_block1: 8 layers, 7 of which
+    need dx.  The upper bound's batch has crop padding, and its unfused
+    ``loss_ce`` is also held against ``F.cross_entropy`` of the same
+    forward's logits on the label's argmax with the padding as background
+    (rtol 1e-5).
 
+    Two runs.  At the model's LeakyReLU slope: losses rtol 1e-4; float32
+    differences between the two forwards can flip the LeakyReLU branch of
+    single pixels whose pre-activation lies nearer 0 (ROADMAP.md Queue 3),
+    and one flip moves every leaf upstream of it by up to a few 1e-3 of its
+    norm, so the flips (ConvLayer outputs whose sign differs) may be at most
+    1e-5 of the pre-activations and the gradients are held in L2 within
+    1e-2 of each leaf's norm, or ``ROUNDOFF_L2`` where nothing flipped.
+    Then with the ConvLayers' slope set to 1, which leaves no branch to
+    flip, on the same batch: the gradients within ``ROUNDOFF_L2``."""
+    import torch.nn.functional as F
+
+    from pacingpseudo_torch.config import ExperimentConfig
+    from pacingpseudo_torch.models import unet
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import (make_pacing_train_step,
+                                               make_upper_bound_train_step)
+
+    name = "parity (upper bound, fused conv)" if upper_bound else "parity (fused conv)"
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    slope = unet.NEGATIVE_SLOPE
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    batch = make_batch(2, 64, 4, seed=3, dev=dev)
+    batch = _parity_batch(upper_bound, dev)
+    flags = (dict(session="Upperbound") if upper_bound else dict(
+        session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
+        do_aux_path=True, do_memory=True, hid_ch=16))
+    config = ExperimentConfig(num_classes=4, ignored_index=4, init_ch=8, batch_size=2,
+                              compute_dtype="float32", **flags).validate()
+    make_step = make_upper_bound_train_step if upper_bound else make_pacing_train_step
     runs = {}
     try:
-        for impl in ("fused", "xla"):
-            fc.set_conv_impl(impl)
-            config = ExperimentConfig(
-                num_classes=4, ignored_index=4, init_ch=8, hid_ch=16, batch_size=2,
-                session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
-                do_aux_path=True, do_memory=True, compute_dtype="float32").validate()
-            state = create_train_state(config, device=dev, seed=11)
-            fc.reset_launch_counts()
-            metrics = make_pacing_train_step(config, steps_per_epoch=4)(state, batch)
-            torch.cuda.synchronize()
-            grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
-            runs[impl] = ({k: float(v) for k, v in metrics.items()}, grads,
-                          dict(fc.LAUNCHES))
+        for run_slope in (slope, 1.0):
+            unet.NEGATIVE_SLOPE = run_slope
+            for impl in ("fused", "xla"):
+                fc.set_conv_impl(impl)
+                state = create_train_state(config, device=dev, seed=11)
+                signs = []
+                hooks = _record_signs(state.model, signs)
+                fc.reset_launch_counts()
+                metrics = make_step(config, steps_per_epoch=4)(state, batch)
+                torch.cuda.synchronize()
+                for hook in hooks:
+                    hook.remove()
+                grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+                runs[run_slope, impl] = ({k: float(v) for k, v in metrics.items()}, grads,
+                                         dict(fc.LAUNCHES), signs)
+        unet.NEGATIVE_SLOPE = slope
+        if upper_bound:
+            model = create_train_state(config, device=dev, seed=11).model
+            with torch.no_grad():
+                logits = model(batch["image"], None, train=True)["segmentation/logits"]
+            label = batch["label"]
+            target = torch.where(label.sum(1) > 0, label.argmax(1), 0)
+            library_ce = float(F.cross_entropy(logits, target))
     finally:
+        unet.NEGATIVE_SLOPE = slope
         fc.set_conv_impl("xla")
         torch.backends.cudnn.deterministic = False
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    (m_f, g_f, n_f), (m_x, g_x, n_x) = runs["fused"], runs["xla"]
-    _check(n_f == {"conv_stats": 8, "bn_sums": 8, "conv_pad_out": 7}
-           and not any(n_x.values()),
-           f"parity (fused conv): launches {n_f} fused, {n_x} unfused")
-    for k in m_x:
-        _check(math.isclose(m_f[k], m_x[k], rel_tol=1e-4, abs_tol=1e-7),
-               f"parity (fused conv): {k} {m_f[k]} vs {m_x[k]}")
-    _grads_close_l2("parity (fused conv)", g_f, g_x, 1e-2)
-    worst = max(float((g_f[k] - g_x[k]).norm() / g_x[k].norm().clamp_min(1e-30))
-                for k in g_x if not k.endswith("bias"))
-    print(f"parity (fused conv): fused step == unfused step over {len(g_x)} "
-          f"gradients (worst relative L2 error of a weight {worst:.2e}), "
-          f"launches {n_f}, loss_total {m_f['loss_total']:.6f}", flush=True)
+    readings = []
+    for run_slope in (slope, 1.0):
+        (m_f, g_f, n_f, s_f), (m_x, g_x, n_x, s_x) = (runs[run_slope, "fused"],
+                                                      runs[run_slope, "xla"])
+        tag = f"{name} at slope {run_slope:g}"
+        _check(n_f == {"conv_stats": 8, "bn_sums": 8, "conv_pad_out": 7}
+               and not any(n_x.values()),
+               f"{tag}: launches {n_f} fused, {n_x} unfused")
+        for k in m_x:
+            _check(math.isclose(m_f[k], m_x[k], rel_tol=1e-4, abs_tol=1e-7),
+                   f"{tag}: {k} {m_f[k]} vs {m_x[k]}")
+        flips, signs = _sign_flips(s_f, s_x), sum(t.numel() for t in s_x)
+        bound = ROUNDOFF_L2 if run_slope == 1.0 or not flips else 1e-2
+        if run_slope != 1.0:
+            _check(flips <= 1e-5 * signs,
+                   f"{tag}: {flips} of {signs} LeakyReLU branches differ")
+        _grads_close_l2(tag, g_f, g_x, bound)
+        worst, leaf = max((float((g_f[k] - g_x[k]).norm() / g_x[k].norm().clamp_min(1e-30)),
+                           k) for k in g_x if not k.endswith("bias"))
+        branches = (f"{flips} of {signs} LeakyReLU branches differ" if run_slope != 1.0
+                    else "no branch")
+        readings.append(f"slope {run_slope:g}: worst relative L2 error of a weight "
+                        f"{worst:.2e} ({leaf}), held at {bound:g}; {branches}")
+    extra = ""
+    if upper_bound:
+        m_x = runs[slope, "xla"][0]
+        _check(bool((batch["label"].sum(1) == 0).any())
+               and math.isclose(m_x["loss_ce"], library_ce, rel_tol=1e-5),
+               f"{name}: loss_ce {m_x['loss_ce']} vs F.cross_entropy {library_ce} on a "
+               "batch with crop padding")
+        extra = f", loss_ce {m_x['loss_ce']:.6f} == F.cross_entropy {library_ce:.6f}"
+    print(f"{name}: fused step == unfused step over {len(g_x)} gradients "
+          f"({'; '.join(readings)}), launches {n_f}, loss_total "
+          f"{runs[slope, 'fused'][0]['loss_total']:.6f}{extra}", flush=True)
 
 
 def _experiment_config():
@@ -897,6 +1062,13 @@ def _experiment_config():
     return ExperimentConfig(
         session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
         do_aux_path=True, do_memory=True).validate()
+
+
+def _upper_bound_config():
+    """The Upperbound session at the same shape: the bare UNet, CE and the
+    Dice loss on the labels, no strong stream."""
+    from pacingpseudo_torch.config import ExperimentConfig
+    return ExperimentConfig(session="Upperbound", loss_dice=True).validate()
 
 
 def _reset_launch_counts(counters):
@@ -909,9 +1081,11 @@ def _launch_counts(counters):
 
 
 def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
-                generator=None, steps_warm=3, steps_timed=5):
-    """The full-width Experiment train step, ``steps_warm + steps_timed``
-    times, on the batches ``next_batch()`` gives.  The launch counts are set
+                generator=None, steps_warm=3, steps_timed=5, config=None):
+    """The full-width train step of ``config``'s session (the Experiment
+    session by default; the Upperbound session's bare model and
+    upper-bound step), ``steps_warm + steps_timed`` times, on the batches
+    ``next_batch()`` gives.  The launch counts are set
     to 0 just before the first step and read just after the last; each
     kernel of ``expected`` (name -> launches a step) must have launched that
     many times per step, and no other kernel at all.  BatchNorm running
@@ -919,14 +1093,16 @@ def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
     impl) and in the dilated ``enc_block5`` (never fused).  Returns the
     state, the counts and the median ms of the timed steps."""
     from pacingpseudo_torch.train.state import create_train_state
-    from pacingpseudo_torch.train.step import make_pacing_train_step
+    from pacingpseudo_torch.train.step import (make_pacing_train_step,
+                                               make_upper_bound_train_step)
 
-    config = _experiment_config()
+    config = config or _experiment_config()
+    siamese = config.session != "Upperbound"
     state = create_train_state(config, device=dev)
     model = state.model
     n_params = sum(p.numel() for p in model.parameters())
-    train_step = make_pacing_train_step(config, steps_per_epoch=100,
-                                        augment_fn=augment_fn)
+    make_step = make_pacing_train_step if siamese else make_upper_bound_train_step
+    train_step = make_step(config, steps_per_epoch=100, augment_fn=augment_fn)
     bns = {k: getattr(model.backbone, k).conv_block.conv_layer1.norm_op
            for k in ("enc_block1", "enc_block5")}
     stats0 = {k: (bn.running_mean.clone(), bn.running_var.clone())
@@ -945,10 +1121,15 @@ def phase_train(name, counters, expected, dev, next_batch, augment_fn=None,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in metrics.items()})
-        if i == 0:
+        if i == 0 and state.memory_bank is not None:
             _check(float(state.memory_bank.abs().sum()) > 0,
                    f"{name}: the memory bank is still zero after step 1")
     launches = _launch_counts(counters)
+
+    if not siamese:
+        _check(not model.do_aux_path and {"loss_ce", "loss_dice"} <= set(losses[0]),
+               f"{name}: the upper-bound step has an aux path or lacks a loss: "
+               f"{sorted(losses[0])}")
 
     for i, m in enumerate(losses):
         _check(all(math.isfinite(v) for v in m.values()),
@@ -1215,7 +1396,6 @@ def phase_loop(dev, counters, data_root, smi):
     finishes epoch 1.  Prints the epochs' seconds and slices/s and the
     checkpoint times with the card's name and power limit."""
     import dataclasses
-    import os
     import re
 
     from pacingpseudo_torch.train import checkpoint as ckpt
@@ -1292,11 +1472,280 @@ def phase_loop(dev, counters, data_root, smi):
           f"stopped state back bit for bit ({count} tensors); checkpoint save "
           f"{t1 - t0:.3f} s, restore {t2 - t1:.3f} s; the resumed run finished epoch 1",
           flush=True)
+    return os.path.join(full_dir, "ckps", "ckp_1")
+
+
+def phase_loop_upper_bound(dev, counters, data_root, smi):
+    """The epoch loop of the Upperbound session at full width: 2 epochs of
+    3 steps on the synthetic pool with ``ref_quirk_bn_eval_after_first_epoch``,
+    a checkpoint every epoch, validation on the card.  Checks the artifacts,
+    the log's ``loss_ce`` and ``loss_dice``, the frozen-BN step in epoch 1,
+    a checkpoint of ``backbone.*`` keys alone (the layout that the JAX
+    importer reads into JAX's upper-bound state, held by a CPU test), and
+    one ``warp_cubic`` launch a step and no other kernel.  Returns the
+    final checkpoint."""
+    import dataclasses
+    import re
+
+    from pacingpseudo_torch.train import checkpoint as ckpt
+    from pacingpseudo_torch.train import loop
+
+    config = dataclasses.replace(_upper_bound_config(), epoch=2, ckp_interval=1,
+                                 ref_quirk_bn_eval_after_first_epoch=True)
+    steps = 3
+    torch.cuda.synchronize()
+    _reset_launch_counts(counters)
+    run_dir, state = loop._train_driver(config, data_root,
+                                        os.path.join(data_root, "runs", "upper_bound"),
+                                        max_steps_per_epoch=steps, device=dev)
+    torch.cuda.synchronize()
+    launches = _launch_counts(counters)
+    n = config.epoch * steps
+    _check(state.step == n and not state.model.do_aux_path,
+           f"loop (upper bound): {state.step} steps, want {n}")
+    _check(launches["warp_cubic"] == n
+           and all(v == 0 for k, v in launches.items() if k != "warp_cubic"),
+           f"loop (upper bound): kernel launches {launches} over {n} steps")
+    for rel in ("log.txt", "config.json", "valdice.npz", "ckps/ckp_0", "ckps/ckp_1"):
+        _check(os.path.exists(os.path.join(run_dir, rel)),
+               f"loop (upper bound): {rel} is missing")
+    valdice = np.load(os.path.join(run_dir, "valdice.npz"))["valdice"]
+    _check(valdice.shape == (2,) and bool(np.isfinite(valdice).all()),
+           f"loop (upper bound): valdice {valdice}")
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    _check("loss_ce" in log and "loss_dice" in log and "epoch 001 on: frozen-BN step" in log
+           and "val: 001, loss: " in log, "loop (upper bound): the log lacks a line")
+    sd0, sd1 = (torch.load(os.path.join(run_dir, "ckps", f"ckp_{e}", ckpt.MODEL_FILE))
+                for e in (0, 1))
+    _check(all(k.startswith("backbone.") for k in sd1) and sorted(sd0) == sorted(sd1),
+           f"loop (upper bound): checkpoint keys {sorted(sd1)[:3]}...")
+    stats = [k for k in sd0 if k.endswith(("running_mean", "running_var"))]
+    _check(all(torch.equal(sd0[k], sd1[k]) for k in stats)
+           and not torch.equal(sd0["backbone.final_conv.weight"],
+                               sd1["backbone.final_conv.weight"]),
+           "loop (upper bound): epoch 1 moved the BatchNorm statistics or not the weights")
+    epochs = re.findall(r"epoch: (\d+), .*, ([\d.]+) s/epoch, ([\d.]+) slices/s", log)
+    saves = re.findall(r"checkpoint (\S+) saved in ([\d.]+) s", log)
+    print(f"loop (upper bound): {smi}: epochs (s, slices/s) "
+          f"{[(float(a), float(b)) for _, a, b in epochs]}, valdice {valdice.tolist()}, "
+          f"checkpoint saves (s) {saves}, launches {launches}", flush=True)
+    return os.path.join(run_dir, "ckps", "ckp_1")
+
+
+# Test slices of the inference phase: the test fifth of a 1,916-slice
+# five-fold pool (README.md's full-shape sweep), in pseudo-patients of 24
+# slices as write_synthetic_dataset groups them at study scale.
+TEST_FOLD_SLICES = 384
+TEST_PATIENT_SLICES = 24
+INFER_WORKERS = 4       # the host threads of HD95: the inference CLI's default
+
+
+def make_test_fold(root, seed, num_slices=TEST_FOLD_SLICES):
+    """Write ``num_slices`` seeded synthetic CHAOS test slices of 256x256
+    (the phantoms of ``write_synthetic_dataset``) and the split file that
+    names them as fold 1's test set, under ``root``.  Inference reads no
+    scribble, so each slice's is all ignore (the skeleton scribbles would
+    take ~0.2 s a slice of host time)."""
+    from pacingpseudo_torch.data.synthetic import make_phantom
+
+    spec = _experiment_config().spec
+    t0 = time.perf_counter()
+    slices = os.path.join(root, "chaos", "slices")
+    split = os.path.join(root, "chaos", "train_test_split", "five_fold_split", "t1")
+    os.makedirs(slices)
+    os.makedirs(split)
+    rng = np.random.RandomState(seed)
+    scb = np.full(spec.input_size, spec.ignored_index, np.float32)
+    names = []
+    for i in range(num_slices):
+        img, lab = make_phantom(rng, spec.input_size, spec.num_classes, "easy")
+        uid = f"pat{i // TEST_PATIENT_SLICES:03d}_slice{i % TEST_PATIENT_SLICES:03d}"
+        np.savez(os.path.join(slices, uid + ".npz"), uid=uid, img=img,
+                 lab=lab.astype(np.float32), scb=scb)
+        names.append(f"slices/{uid}.npz")
+    with open(os.path.join(split, f"test_fold{_experiment_config().fold}.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    print(f"inference: wrote {num_slices} synthetic {spec.input_size} test slices of "
+          f"{-(-num_slices // TEST_PATIENT_SLICES)} patients in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
+def phase_inference(dev, counters, data_root, checkpoints, smi, batch_size=8, passes=2,
+                    host_slices=48):
+    """``run_inference`` on the test split under ``data_root``
+    (``make_test_fold``) at ``batch_size``, bf16, from each ``(tag, config,
+    checkpoint)``: the bare upper-bound model's and the siamese Experiment
+    model's, whose backbone is taken.  Checks
+    ``eval_data.npz`` (``dicearr`` and ``hd95arr`` of shape (N_test, 5), the
+    uids in the loader's order), Dice in [0, 1] or NaN, no kernel launched,
+    and each slice's ``dicearr`` row against ``dice_per_class_hard`` of the
+    argmax of the session's eval step on the card, from the same
+    checkpoint, on the same batches of the float16-rounded images (rtol
+    1e-6: the device forms each quotient in float32, the host in float64).
+    Times the forward alone (upload, normalisation, UNet, argmax) over
+    ``passes`` passes after one warm-up pass, reads the whole run's slices/s
+    with HD95 from ``run_inference``, and times the host metrics of one
+    slice (``compute_dice_hard`` and ``compute_95hd`` of the eval step's
+    argmax) in one thread and in the run's pool of host threads over the
+    first ``host_slices`` slices."""
+    from pacingpseudo_torch.aug.engine import eval_preprocess_batch
+    from pacingpseudo_torch.data.npz_dataset import (BatchLoader, SliceDataset,
+                                                     raw_batch_to_device)
+    from pacingpseudo_torch.data.splits import read_test_split
+    from pacingpseudo_torch.evals import infer
+    from pacingpseudo_torch.evals.dice import compute_dice_hard, dice_per_class_hard
+    from pacingpseudo_torch.evals.hd import compute_95hd
+    from pacingpseudo_torch.train import checkpoint as ckpt
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import (make_pacing_eval_step,
+                                               make_upper_bound_eval_step)
+
+    spec = _experiment_config().spec
+    c, fold = spec.num_classes, _experiment_config().fold
+    ds = SliceDataset(read_test_split(data_root, spec.name, fold), c, spec.ignored_index)
+    batches = list(BatchLoader(ds, batch_size))
+    n_test = len(ds)
+    uids = [u for b in batches for u in b["uid"]]
+    _check(n_test == TEST_FOLD_SLICES
+           and all(bool((b["size"] == ds.canvas_size).all()) for b in batches),
+           f"inference: {n_test} test slices, or some do not fill their canvases")
+    for tag, config, path in checkpoints:
+        siamese = config.session != "Upperbound"
+        keys = torch.load(os.path.join(path, ckpt.MODEL_FILE)).keys()
+        _check(ckpt.saved_is_siamese(path)
+               and any(k.startswith("aux_path.") for k in keys) == siamese,
+               f"inference ({tag}): checkpoint keys {sorted(keys)[:3]}...")
+        kwargs = dict(input_ch=config.input_ch, init_ch=config.init_ch,
+                      max_ch=config.max_ch, output_stride=config.output_stride,
+                      is_stride_conv=config.is_stride_conv,
+                      is_trans_conv=config.is_trans_conv)
+        model = infer.load_inference_model(path, c, kwargs, "bfloat16", dev)
+
+        def forward_pass():
+            for raw in batches:
+                image = torch.from_numpy(raw["image"].astype(np.float16)).to(dev)
+                infer.forward_hard(model, image, torch.from_numpy(raw["size"]).to(dev))
+
+        forward_pass()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            forward_pass()
+        torch.cuda.synchronize()
+        forward_rate = passes * n_test / (time.perf_counter() - t0)
+
+        out_dir = os.path.join(data_root, "inference", tag.split()[0])
+        os.makedirs(out_dir)
+        _reset_launch_counts(counters)
+        res = infer.run_inference(spec.name, fold, path, data_root, out_dir,
+                                  batch_size=batch_size, model_kwargs=kwargs,
+                                  compute_dtype="bfloat16", num_workers=INFER_WORKERS,
+                                  device=dev)
+        launches = _launch_counts(counters)
+        saved = np.load(os.path.join(out_dir, "eval_data.npz"))
+        dicearr, hd95arr = saved["dicearr"], saved["hd95arr"]
+        _check(dicearr.shape == hd95arr.shape == (n_test, c)
+               and list(saved["uids"]) == uids == res["uids"],
+               f"inference ({tag}): eval_data.npz {dicearr.shape} {hd95arr.shape}, uids "
+               f"{list(saved['uids'])[:3]}...")
+        finite = dicearr[np.isfinite(dicearr)]
+        _check(bool(((finite >= 0) & (finite <= 1)).all()) and not any(launches.values()),
+               f"inference ({tag}): Dice outside [0, 1] or kernels launched {launches}")
+
+        state = create_train_state(config, device=dev)
+        ckpt.restore_checkpoint(path, state)
+        eval_step = (make_pacing_eval_step if siamese else make_upper_bound_eval_step)(config)
+        rows, preds = [], []
+        for raw in batches:
+            batch = raw_batch_to_device(raw, dev)
+            batch["image"] = batch["image"].half().float()
+            logits = eval_step(state, eval_preprocess_batch(batch, c))[-1]
+            preds.append(logits.argmax(dim=1))
+            rows.append(dice_per_class_hard(preds[-1], batch["label"].long(), c))
+        want = torch.cat(rows).cpu().numpy()
+        preds = torch.cat(preds)[:host_slices].cpu().numpy()
+        labels = np.concatenate([b["label"] for b in batches])[:host_slices].astype(np.int64)
+
+        def host_metrics(pred, label):
+            return compute_dice_hard(pred, label, c), compute_95hd(pred, label, c,
+                                                                   spec.spacing)
+
+        t0 = time.perf_counter()
+        for pred, label in zip(preds, labels):
+            host_metrics(pred, label)
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(preds)
+        with concurrent.futures.ThreadPoolExecutor(INFER_WORKERS) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(host_metrics, preds, labels))
+            pool_ms = (time.perf_counter() - t0) * 1e3 / len(preds)
+        same = np.isclose(dicearr, want, rtol=1e-6, atol=0.0, equal_nan=True)
+        _check(bool(same.all()),
+               f"inference ({tag}): {int((~same.all(axis=1)).sum())} of {n_test} slices' "
+               f"Dice differ from the eval step's argmax: {dicearr[~same]} vs {want[~same]}")
+        del model, state
+        print(f"inference ({tag}): {smi}: {n_test} test slices at batch {batch_size}, bf16: "
+              f"the forward alone {forward_rate:.1f} slices/s ({passes} passes), the whole "
+              f"run with HD95 in {INFER_WORKERS} host threads {res['slices_per_sec']:.1f} "
+              f"slices/s; Dice and HD95 on the host {host_ms:.2f} ms a slice in one "
+              f"thread, {pool_ms:.2f} ms a slice in {INFER_WORKERS} ({len(preds)} slices); "
+              f"Dice {res['dice']:.4f}, "
+              f"HD95 {res['hd95']:.2f}, per patient {res['dice_per_patient']:.4f} over "
+              f"{res['num_patients']} patients; each slice's Dice equals the eval step's",
+              flush=True)
+
+
+def _fused_step_plan(fc, config, name):
+    """The launches a fused step of ``config``'s session makes (``conv_stats``
+    and ``bn_sums`` once per fused layer, ``conv_pad_out`` once per fused
+    layer whose input needs a gradient) and the GEMMs' routes a step, from
+    ``conv_layer_shapes`` and ``conv_plan``; held against the layers JAX
+    fuses at this shape (all but the four dilated ones; enc_block1's first
+    layer reads the image), whose conv_stats takes the simple route."""
+    from scripts.reckon_fused_conv_bounds import conv_layer_shapes
+
+    layers = [s for s in conv_layer_shapes(config) if s[6]]
+    kernels = {"conv_stats": len(layers), "bn_sums": len(layers),
+               "conv_pad_out": sum(s[7] for s in layers)}
+    routes = {k: {"wgmma": 0, "simple": 0} for k in GEMMS}
+    for s in layers:
+        for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items():
+            routes[k][p.route] += k == "conv_stats" or s[7]
+    _check(routes == {"conv_stats": {"wgmma": FUSED_LAYERS - 1, "simple": 1},
+                      "conv_pad_out": {"wgmma": FUSED_LAYERS - 1, "simple": 0}},
+           f"{name}: the plan routes {routes} a step; want conv_stats "
+           f"{FUSED_LAYERS - 1} wgmma + 1 simple, conv_pad_out {FUSED_LAYERS - 1} wgmma")
+    _check(len(layers) == FUSED_LAYERS and kernels["conv_pad_out"] == FUSED_LAYERS - 1,
+           f"{name}: {len(layers)} fused layers, {kernels['conv_pad_out']} with dx; "
+           f"want {FUSED_LAYERS} and {FUSED_LAYERS - 1}")
+    return kernels, routes
+
+
+def _phase_fused_train(fc, name, counters, kernels, routes, dev, raw_batches, augment_fn,
+                       config):
+    """``phase_train`` under the conv impl ``"fused"``, then the GEMMs'
+    launches by route against the plan's ``routes`` a step.  Returns the
+    launches, the routes counted and the median step ms."""
+    fc.set_conv_impl("fused")
+    try:
+        _, launches, ms = phase_train(
+            name, counters, kernels, dev, lambda: next(raw_batches), augment_fn=augment_fn,
+            generator=torch.Generator(device=dev).manual_seed(config.seed), config=config)
+        counted = {k: dict(v) for k, v in fc.ROUTES.items()}
+    finally:
+        fc.set_conv_impl("xla")
+    steps = launches["conv_stats"] // kernels["conv_stats"]
+    _check(counted == {k: {r: n * steps for r, n in v.items()} for k, v in routes.items()},
+           f"{name}: GEMM launches by route {counted} over {steps} steps, expected "
+           f"{routes} a step")
+    print(f"{name}: GEMM launches by route a step {routes}", flush=True)
+    return launches, counted, ms
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs on a GPU only")
+    from pacingpseudo_torch.aug import engine
+    from pacingpseudo_torch.aug.presets import base_params_for
     from pacingpseudo_torch.ops import _build
     from pacingpseudo_torch.ops import fused_convbn as fc
     from pacingpseudo_torch.ops import fused_loss as fl
@@ -1337,6 +1786,7 @@ def main() -> None:
     check_weight_grad(fc, dev)
     phase_parity(dev)
     phase_parity_fused(fc, dev)
+    phase_parity_fused(fc, dev, upper_bound=True)
 
     config = _experiment_config()
     batch = make_batch(config.batch_size, config.spec.input_size[0],
@@ -1346,26 +1796,12 @@ def main() -> None:
     phase_eval("eval", state, batch)
     del state, batch
 
-    from scripts.reckon_fused_conv_bounds import conv_layer_shapes
-    layers = [s for s in conv_layer_shapes(config) if s[6]]
-    fused_kernels = {**raw_kernels, "conv_stats": len(layers), "bn_sums": len(layers),
-                     "conv_pad_out": sum(s[7] for s in layers)}
-    fused_routes = {k: {"wgmma": 0, "simple": 0} for k in GEMMS}
-    for s in layers:
-        for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items():
-            fused_routes[k][p.route] += k == "conv_stats" or s[7]
-    _check(fused_routes == {"conv_stats": {"wgmma": FUSED_LAYERS - 1, "simple": 1},
-                            "conv_pad_out": {"wgmma": FUSED_LAYERS - 1, "simple": 0}},
-           f"train (raw, fused conv): the plan routes {fused_routes} a step; want "
-           f"conv_stats {FUSED_LAYERS - 1} wgmma + 1 simple, conv_pad_out "
-           f"{FUSED_LAYERS - 1} wgmma")
-    # The gate and the dx skip are the code under test: hold what they give
-    # against the layers JAX fuses at this shape (all but the four dilated
-    # ones; enc_block1's first layer reads the image).
-    _check(len(layers) == FUSED_LAYERS and fused_kernels["conv_pad_out"] == FUSED_LAYERS - 1,
-           f"train (raw, fused conv): {len(layers)} fused layers, "
-           f"{fused_kernels['conv_pad_out']} with dx; want {FUSED_LAYERS} and "
-           f"{FUSED_LAYERS - 1}")
+    fused_kernels, fused_routes = _fused_step_plan(fc, config, "train (raw, fused conv)")
+    fused_kernels.update(raw_kernels)
+    ub_config = _upper_bound_config()
+    ub_fused_kernels, ub_fused_routes = _fused_step_plan(
+        fc, ub_config, "train (raw, upper bound, fused conv)")
+    ub_fused_kernels[warp_kernel] = 1
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as root:
         raw_batches, val_loader, config = make_raw_pool(root, dev)
         augment_fn, other_augment_fn = phase_augment(wt, wc, dev, next(raw_batches),
@@ -1389,30 +1825,44 @@ def main() -> None:
             generator=torch.Generator(device=dev).manual_seed(config.seed))
         print(f"{name}: median step {other_ms:.3f} ms with the {other_route} route's "
               f"warp, {raw_ms:.3f} ms with the default route's in this run", flush=True)
-        fc.set_conv_impl("fused")
-        try:
-            _, fused_launches, fused_ms = phase_train(
-                "train (raw, fused conv)", counters, fused_kernels, dev,
-                lambda: next(raw_batches), augment_fn=augment_fn,
-                generator=torch.Generator(device=dev).manual_seed(config.seed))
-            routes = {k: dict(v) for k, v in fc.ROUTES.items()}
-        finally:
-            fc.set_conv_impl("xla")
-        raw_batches.close()
-        steps = fused_launches["conv_stats"] // len(layers)
-        _check(routes == {k: {r: n * steps for r, n in v.items()}
-                          for k, v in fused_routes.items()},
-               f"train (raw, fused conv): GEMM launches by route {routes} over {steps} "
-               f"steps, expected {fused_routes} a step")
-        print(f"train (raw, fused conv): GEMM launches by route a step {fused_routes}",
-              flush=True)
+        fused_launches, routes, fused_ms = _phase_fused_train(
+            fc, "train (raw, fused conv)", counters, fused_kernels, fused_routes, dev,
+            raw_batches, augment_fn, config)
         print(f"train (raw, fused conv): median step {fused_ms:.3f} ms with the "
               f"fused ConvLayer, {raw_ms:.3f} ms unfused in this run; "
               f"launches a step {fused_kernels}", flush=True)
-        phase_loop(dev, counters, root, smi)
+
+        # The Upperbound session: the bare model, the augmentation without
+        # the strong stream, then the same under the fused conv impl (N = 12).
+        ub_augment_fn = engine.make_train_augment_fn(base_params_for(ub_config.dataset),
+                                                     do_strong=False)
+        _, ub_launches, ub_ms = phase_train(
+            "train (raw, upper bound)", counters, {warp_kernel: 1}, dev,
+            lambda: next(raw_batches), augment_fn=ub_augment_fn,
+            generator=torch.Generator(device=dev).manual_seed(config.seed), config=ub_config)
+        ub_fused_launches, ub_routes, ub_fused_ms = _phase_fused_train(
+            fc, "train (raw, upper bound, fused conv)", counters, ub_fused_kernels,
+            ub_fused_routes, dev, raw_batches, ub_augment_fn, ub_config)
+        raw_batches.close()
+        print(f"train (raw, upper bound): {smi}: median step {ub_ms:.3f} ms "
+              f"({ub_config.batch_size * 1e3 / ub_ms:.1f} slices/s), {ub_fused_ms:.3f} ms "
+              f"under the fused conv impl (launches a step {ub_fused_kernels}); the "
+              f"Experiment raw step {raw_ms:.3f} ms in this run", flush=True)
+
+        exp_checkpoint = phase_loop(dev, counters, root, smi)
+        ub_checkpoint = phase_loop_upper_bound(dev, counters, root, smi)
+        test_root = os.path.join(root, "test")
+        make_test_fold(test_root, config.seed)
+        phase_inference(dev, counters, test_root,
+                        (("upper bound (bare)", ub_config, ub_checkpoint),
+                         ("experiment (siamese)", config, exp_checkpoint)), smi)
 
     check_bn_sums_launches(fc, dev)
     check_fused_loss_launches(fl, dev)
+    paths = {"train (raw)": launches, f"train (raw, {other_route} warp)": other_launches,
+             "train (raw, fused conv)": fused_launches,
+             "train (raw, upper bound)": ub_launches,
+             "train (raw, upper bound, fused conv)": ub_fused_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel
@@ -1423,6 +1873,11 @@ def main() -> None:
         row["launches"] = fused_launches[row["name"]]
         if row["name"] in routes:
             row["gemm_routes"] = routes[row["name"]]
+            row["gemm_routes_upper_bound"] = ub_routes[row["name"]]
+    for row in rows + conv_rows:
+        # The launches of every timed path (8 steps each) that runs the kernel.
+        row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
+                                   if n.get(row["name"])}
     print(json.dumps({"kernels": rows + conv_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ default) or ``cpu``.  There is no fallback: without a CUDA device, ``--gpu
 0`` fails.  The flags that only steer the JAX package's TPU execution
 (``--s2d_hires``, ``--steps_per_dispatch``, ``--device_resident_data``,
 ``--spatial_shards``, ``--num_devices``, ``--profile_dir``) parse and are
-ignored, and so are the TPU preflight and the XLA compile cache.  The
-``Upperbound`` session is not ported yet: it parses and the loop refuses it.
+ignored, and so are the TPU preflight and the XLA compile cache.
+``--session Upperbound`` trains the fully supervised bare model
+(upper_bound_chaos.py), with ``--loss_dice``.
 """
 from __future__ import annotations
 

@@ -27,6 +27,16 @@ renamed into place, so no reader sees a half-written one.
 A siamese checkpoint opens in a bare UNet: :func:`restore_params` and
 :func:`restore_batch_stats` take the ``backbone.`` entries, as the
 reference's prefix-stripping load does (inference.py:138-146).
+
+The Upperbound session's model is the siamese model's class without the
+aux path, so its ``model.pth`` has ``backbone.*`` keys and nothing else.
+That is the layout of the JAX package's upper-bound state (a
+``PacingPseudoModel`` without aux path, ``params['backbone']``), so
+``load_torch_checkpoint`` gives back the tree JAX's upper-bound train state
+holds, and one state class serves every session's resume.  The reference's
+``upper_bound_chaos.py`` saved a bare ``UNet`` (keys without a prefix):
+the inference functions open that layout too, and also take the path of
+the reference's own ``.pth`` file, a state_dict saved by itself.
 """
 from __future__ import annotations
 
@@ -64,7 +74,10 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 def _model_state(path: str) -> Dict[str, torch.Tensor]:
-    return torch.load(os.path.join(path, MODEL_FILE), map_location="cpu")
+    """The model state_dict of the checkpoint directory ``path``, or of the
+    state_dict file ``path`` (the reference's ``torch.save(model.state_dict())``)."""
+    file = path if os.path.isfile(path) else os.path.join(path, MODEL_FILE)
+    return torch.load(file, map_location="cpu")
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:

@@ -1,8 +1,10 @@
 """Experiment orchestration: run dirs, logging, TB, the epoch loop.
 
-The port of ``pacingpseudo_tpu/train/loop.py`` for the Control and
-Experiment sessions: ``train_driver(config, data_root)`` trains a model on
-one device from the dataset's fold split.
+The port of ``pacingpseudo_tpu/train/loop.py`` for the Control,
+Experiment and Upperbound sessions: ``train_driver(config, data_root)``
+trains a model on one device from the dataset's fold split.  The
+Upperbound session trains the bare model (no aux path, no bank, no strong
+stream) with the upper-bound steps and validates with CE on the labels.
 
 Loop structure (reference train_chaos.py:242-429): per-epoch LR decay
 (inside the step), the train inner loop, TensorBoard scalars and figure
@@ -32,8 +34,8 @@ partial batch, and reads five small tensors an epoch.
 
 Not ported (``ROADMAP.md``): the mesh / spatial / multi-device branch, the
 chunked and resident *training* paths (``steps_per_dispatch``,
-``device_resident_data`` parse and are ignored), the ``Upperbound``
-session and ``profile_dir``'s profiler trace.
+``device_resident_data`` parse and are ignored) and ``profile_dir``'s
+profiler trace.
 """
 from __future__ import annotations
 
@@ -54,9 +56,13 @@ from pacingpseudo_torch.aug.presets import base_params_for, strong_params_for
 from pacingpseudo_torch.config import ExperimentConfig
 from pacingpseudo_torch.data.npz_dataset import BatchLoader, SliceDataset, raw_batch_to_device
 from pacingpseudo_torch.data.splits import read_fold_split
+from pacingpseudo_torch.evals.dice import dice_per_class
+from pacingpseudo_torch.losses import partial_cross_entropy_loss
 from pacingpseudo_torch.train import checkpoint as ckpt_lib
 from pacingpseudo_torch.train.state import TrainState, create_train_state
-from pacingpseudo_torch.train.step import make_pacing_eval_step, make_pacing_train_step
+from pacingpseudo_torch.train.step import (eval_logits, make_pacing_eval_step,
+                                           make_pacing_train_step,
+                                           make_upper_bound_train_step)
 from pacingpseudo_torch.utils import AvgMeter
 
 
@@ -255,9 +261,16 @@ def make_resident_eval_fn(config: ExperimentConfig):
     of the real samples and their counts (the AvgMeter-skipping-NaN
     semantics of :class:`ValState`) and the loss weighted by the real
     samples.  The sums are float64 so that they agree with ValState's
-    Python floats to float64 roundoff."""
+    Python floats to float64 roundoff.
+
+    In the Upperbound session the loss is CE on the labels
+    (upper_bound_chaos.py:186-209) with JAX's resident target
+    (``step.py:388-398``): the raw label where it names a class, else 0, so
+    canvas padding counts as background; the padded duplicate samples are
+    ignored."""
     eval_step = make_pacing_eval_step(config)
     num_classes = config.num_classes
+    upper_bound = config.session == "Upperbound"
 
     @torch.no_grad()
     def eval_all(state: TrainState, pool: ValPool):
@@ -267,10 +280,19 @@ def make_resident_eval_fn(config: ExperimentConfig):
                "dice_sum": torch.zeros(num_classes, dtype=torch.float64, device=dev),
                "dice_cnt": torch.zeros(num_classes, dtype=torch.float64, device=dev)}
         for idx, valid in zip(pool.idx_blocks, pool.valid_blocks):
-            batch = eval_preprocess_batch({k: v[idx] for k, v in pool.raw.items()},
-                                          num_classes)
+            raw = {k: v[idx] for k, v in pool.raw.items()}
+            batch = eval_preprocess_batch(raw, num_classes)
             batch["sample_valid"] = valid
-            loss, dice, _ = eval_step(state, batch)
+            if upper_bound:
+                logits = eval_logits(state.model, batch["image"])
+                label = raw["label"].long()
+                target = torch.where(label < num_classes, label, 0)
+                target = torch.where(valid[:, None, None], target, config.ignored_index)
+                loss = partial_cross_entropy_loss(logits, target, config.ignored_index)
+                dice = dice_per_class(torch.softmax(logits, dim=1), batch["label"],
+                                      region_mask=batch["region_mask"])
+            else:
+                loss, dice, _ = eval_step(state, batch)
             ok = ~torch.isnan(dice) & valid[:, None]
             n_real = valid.sum().double()
             acc["loss_sum"] += loss.double() * n_real
@@ -322,15 +344,14 @@ def _train_driver(config: ExperimentConfig, data_root: str,
                   device="cuda") -> Tuple[str, TrainState]:
     """:func:`train_driver`, returning ``(run_dir, final train state)``."""
     config.validate()
-    if config.session == "Upperbound":
-        raise NotImplementedError("the Upperbound session is not ported yet")
+    upper_bound = config.session == "Upperbound"
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"no CUDA device for {device}: pass the CPU explicitly")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-    do_strong = config.do_decoder_consistency
+    do_strong = config.do_decoder_consistency and not upper_bound
 
     if run_dir is None:
         run_dir = make_run_dir(config)
@@ -366,12 +387,12 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             start_epoch = state.step // steps_per_epoch
             logging.info("resumed from %s at epoch %d", latest, start_epoch)
 
-    train_step = make_pacing_train_step(config, steps_per_epoch, augment_fn=augment_fn)
+    make_train = make_upper_bound_train_step if upper_bound else make_pacing_train_step
+    train_step = make_train(config, steps_per_epoch, augment_fn=augment_fn)
     train_step_frozen = None
     if config.ref_quirk_bn_eval_after_first_epoch:
-        train_step_frozen = make_pacing_train_step(config, steps_per_epoch,
-                                                   module_train=False,
-                                                   augment_fn=augment_fn)
+        train_step_frozen = make_train(config, steps_per_epoch, module_train=False,
+                                       augment_fn=augment_fn)
     val_pool = stage_val_pool(val_ds, config.batch_size, device)
     resident_eval = make_resident_eval_fn(config)
     generator = torch.Generator(device=device)
@@ -453,8 +474,9 @@ def _train_driver(config: ExperimentConfig, data_root: str,
 
             # TB figure panels from the LAST training batch
             # (train_chaos.py:320-360); the augmentation is drawn again
-            # with an epoch-keyed seed and one frozen-BN forward.
-            if config.tb_figures and last_raw is not None:
+            # with an epoch-keyed seed and one frozen-BN forward.  The
+            # upper-bound session draws none, as in JAX (loop.py:487).
+            if config.tb_figures and last_raw is not None and not upper_bound:
                 generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
                 fig_batch = augment_fn(last_raw, generator)
                 fig_out = _figure_forward(state, fig_batch)

@@ -35,7 +35,12 @@ class TrainState:
 
 
 def build_model(config, device="cuda") -> PacingPseudoModel:
-    """The :class:`PacingPseudoModel` an :class:`ExperimentConfig` describes."""
+    """The :class:`PacingPseudoModel` an :class:`ExperimentConfig` describes.
+
+    The Upperbound session's model is bare: the aux path (and with it the
+    bank) is off whatever ``config.do_aux_path`` says, as in the JAX loop's
+    ``_build_model`` (``do_aux_path and siamese``).
+    """
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
         config.compute_dtype]
     return PacingPseudoModel(
@@ -43,7 +48,8 @@ def build_model(config, device="cuda") -> PacingPseudoModel:
         max_ch=config.max_ch, num_classes=config.num_classes,
         output_stride=config.output_stride,
         is_stride_conv=config.is_stride_conv,
-        is_trans_conv=config.is_trans_conv, do_aux_path=config.do_aux_path,
+        is_trans_conv=config.is_trans_conv,
+        do_aux_path=config.do_aux_path and config.session != "Upperbound",
         feat_stage=config.feat_stage, hid_ch=config.hid_ch,
         aux_drop_prob=config.aux_drop_prob, aux_on_strong=config.aux_on_strong,
         fuse_streams=config.fuse_streams, dtype=dtype, device=device)
@@ -55,9 +61,10 @@ def create_train_state(config, device="cuda", model=None,
 
     Without ``model`` the model of ``config`` is built and its weights are
     drawn with PyTorch's default conv init from a ``torch.Generator`` on
-    ``device`` seeded with ``seed`` (``config.seed`` by default).  A given
-    ``model`` (weights loaded by the caller) is used as it is.  The bank
-    starts at zero.
+    ``device`` seeded with ``seed`` (``config.seed`` by default); the
+    backbone draws first, so the Upperbound session's bare model of a seed
+    has the siamese model's backbone.  A given ``model`` (weights loaded by
+    the caller) is used as it is.  The bank starts at zero.
     """
     if model is None:
         model = build_model(config, device)

@@ -1,10 +1,12 @@
-"""Pacing train and eval steps.
+"""Pacing and upper-bound train and eval steps.
 
-The port of ``pacingpseudo_tpu/train/step.py:45-232,308-338`` (reference
-train_chaos.py:263-315, consistency_reglur_memory.py:24-102).  One train
-step runs the siamese forward, every enabled loss, the backward, the
-optimizer update with the per-epoch learning rate, and the memory-bank
-EMA.  With an ``augment_fn`` (aug/engine.py ``make_train_augment_fn``) the
+The port of ``pacingpseudo_tpu/train/step.py:45-232,308-338,439-522``
+(reference train_chaos.py:263-315, consistency_reglur_memory.py:24-102,
+upper_bound_chaos.py:152-209).  One pacing train step runs the siamese
+forward, every enabled loss, the backward, the optimizer update with the
+per-epoch learning rate, and the memory-bank EMA; an upper-bound step the
+bare model's forward, CE and Dice on the full labels, the backward and the
+update.  With an ``augment_fn`` (aug/engine.py ``make_train_augment_fn``) the
 step takes a raw canvas batch and augments it first, on the device, as the
 JAX step does with its ``augment_fn``; without one it takes an already
 augmented batch.
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from pacingpseudo_torch.evals.dice import dice_per_class
 from pacingpseudo_torch.losses import (
     cross_entropy_loss,
+    dice_loss_fn,
     entropy_minimization_loss,
     kl_loss,
     l1_loss,
@@ -169,6 +172,39 @@ def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
     return total, metrics, new_bank
 
 
+def _make_train_step(config, steps_per_epoch: int, losses: Callable,
+                     module_train: bool, augment_fn: Optional[Callable]):
+    """The step skeleton both sessions share: augment, forward and losses
+    (``losses(config, model, batch, epoch) -> (total, metrics, new_bank)``),
+    backward, the optimizer update with the per-epoch learning rate, the
+    bank's EMA when ``new_bank`` is not None."""
+
+    def train_step(state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None):
+        model, opt = state.model, state.optimizer
+        epoch = float(state.step // steps_per_epoch)
+        if augment_fn is not None:
+            if generator is None:
+                raise ValueError("a step with an augment_fn needs a generator")
+            with torch.no_grad():
+                batch = augment_fn(batch, generator)
+        model.train(module_train)
+        opt.zero_grad(set_to_none=True)
+        total, metrics, new_bank = losses(config, model, batch, epoch)
+        total.backward()
+        lr = lr_at(config, state.step, steps_per_epoch)
+        set_lr(opt, lr)
+        opt.step()
+        if new_bank is not None:
+            model.aux_path.memory_bank.copy_(new_bank[:, :, None, None])
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["lr"] = lr
+        return metrics
+
+    return train_step
+
+
 def make_pacing_train_step(config, steps_per_epoch: int,
                            module_train: bool = True,
                            augment_fn: Optional[Callable] = None
@@ -187,31 +223,20 @@ def make_pacing_train_step(config, steps_per_epoch: int,
     ``generator`` a ``torch.Generator`` on the batch's device, from which
     the augmentation draws; it runs under ``torch.no_grad()``.
     """
+    return _make_train_step(config, steps_per_epoch, _pacing_losses,
+                            module_train, augment_fn)
 
-    def train_step(state: TrainState, batch: Dict[str, Any],
-                   generator: Optional[torch.Generator] = None):
-        model, opt = state.model, state.optimizer
-        epoch = float(state.step // steps_per_epoch)
-        if augment_fn is not None:
-            if generator is None:
-                raise ValueError("a step with an augment_fn needs a generator")
-            with torch.no_grad():
-                batch = augment_fn(batch, generator)
-        model.train(module_train)
-        opt.zero_grad(set_to_none=True)
-        total, metrics, new_bank = _pacing_losses(config, model, batch, epoch)
-        total.backward()
-        lr = lr_at(config, state.step, steps_per_epoch)
-        set_lr(opt, lr)
-        opt.step()
-        if new_bank is not None:
-            model.aux_path.memory_bank.copy_(new_bank[:, :, None, None])
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["lr"] = lr
-        return metrics
 
-    return train_step
+@torch.no_grad()
+def eval_logits(model, image):
+    """The weak-stream logits of an eval-mode forward (running BatchNorm
+    statistics, no dropout); the model's train/eval mode is restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        return model(image, None, train=False)["segmentation/logits"]
+    finally:
+        model.train(was_training)
 
 
 def make_pacing_eval_step(config):
@@ -226,24 +251,80 @@ def make_pacing_eval_step(config):
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]):
-        model = state.model
-        was_training = model.training
-        model.eval()
-        try:
-            logits = model(batch["image"], None, train=False)[
-                "segmentation/logits"]
-        finally:
-            model.train(was_training)
-        scb_target = batch["scribble"].argmax(dim=1)
-        sample_valid = batch.get("sample_valid")
-        if sample_valid is not None:
-            scb_target = torch.where(sample_valid[:, None, None], scb_target,
-                                     torch.full_like(scb_target,
-                                                     config.ignored_index))
+        logits = eval_logits(state.model, batch["image"])
+        scb_target = _ignore_padded(config, batch["scribble"].argmax(dim=1),
+                                    batch.get("sample_valid"))
         loss_pce = partial_cross_entropy_loss(logits, scb_target,
                                               config.ignored_index)
         dice = dice_per_class(F.softmax(logits, dim=1), batch["label"],
                               region_mask=batch.get("region_mask"))
         return loss_pce, dice, logits
+
+    return eval_step
+
+
+def _ignore_padded(config, target, sample_valid):
+    """``target`` with the samples ``sample_valid`` masks out (the loop's
+    padding of a partial batch) set to ``ignored_index``."""
+    if sample_valid is None:
+        return target
+    return torch.where(sample_valid[:, None, None], target,
+                       torch.full_like(target, config.ignored_index))
+
+
+# ---------------------------------------------------------------------------
+# Upper-bound (fully supervised) steps -- reference upper_bound_chaos.py
+# ---------------------------------------------------------------------------
+
+def _upper_bound_losses(config, model, batch, epoch):
+    """Forward and losses of one upper-bound step on the bare model
+    (``pacingpseudo_tpu/train/step.py:439-460``, reference
+    upper_bound_chaos.py:157-167): CE on the argmax of the one-hot label,
+    plus the soft Dice loss with ``loss_dice``.  A crop-padded pixel's label
+    row is all zero and its argmax 0 (``torch.argmax`` takes the first
+    maximum, as JAX's does), so padding trains as background."""
+    logits = model(batch["image"], None, train=True)["segmentation/logits"]
+    loss_ce = partial_cross_entropy_loss(logits, batch["label"].argmax(dim=1),
+                                         config.ignored_index)
+    total = loss_ce
+    metrics = {"loss_ce": loss_ce}
+    if config.loss_dice:
+        loss_dice = dice_loss_fn(logits, batch["label"])
+        total = total + loss_dice
+        metrics["loss_dice"] = loss_dice
+    metrics["loss_total"] = total
+    return total, metrics, None
+
+
+def make_upper_bound_train_step(config, steps_per_epoch: int,
+                                module_train: bool = True,
+                                augment_fn: Optional[Callable] = None
+                                ) -> Callable[..., Dict]:
+    """The upper-bound train step ``(state, batch, generator=None) ->
+    metrics`` (``loss_ce``, ``loss_dice`` with ``config.loss_dice``,
+    ``loss_total``, ``lr``) on a state whose model has no aux path
+    (:func:`create_train_state` of an Upperbound config).  ``module_train``
+    and ``augment_fn`` as in :func:`make_pacing_train_step`; the
+    augmentation runs without the strong stream."""
+    return _make_train_step(config, steps_per_epoch, _upper_bound_losses,
+                            module_train, augment_fn)
+
+
+def make_upper_bound_eval_step(config):
+    """Validation step ``(state, batch) -> (loss_ce, loss_dice, dice (N, C),
+    logits)`` (upper_bound_chaos.py:186-209): CE on the argmax of the
+    label (padded samples of ``sample_valid`` ignored), the soft Dice loss
+    and the per-class Dice of :func:`make_pacing_eval_step`."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, Any]):
+        logits = eval_logits(state.model, batch["image"])
+        target = _ignore_padded(config, batch["label"].argmax(dim=1),
+                                batch.get("sample_valid"))
+        loss_ce = partial_cross_entropy_loss(logits, target, config.ignored_index)
+        loss_dice = dice_loss_fn(logits, batch["label"])
+        dice = dice_per_class(F.softmax(logits, dim=1), batch["label"],
+                              region_mask=batch.get("region_mask"))
+        return loss_ce, loss_dice, dice, logits
 
     return eval_step

@@ -56,9 +56,11 @@ F32 = 4
 
 def conv_layer_shapes(config):
     """``(name, n, ci, co, h, w, fused, needs_dx)`` of every ConvLayer call in
-    one train forward of the siamese model (both streams in one batch):
-    whether the fused path takes it, and whether its input needs a
-    gradient."""
+    one train forward of the model ``config``'s session trains: the
+    siamese model with both streams in one batch, or the Upperbound
+    session's bare model on the weak stream alone; whether the fused path
+    takes it, and whether its input needs a gradient."""
+    siamese = config.session != "Upperbound"
     model = build_model(config, device="meta")
     shapes = []
 
@@ -73,7 +75,7 @@ def conv_layer_shapes(config):
             module.register_forward_hook(functools.partial(hook, name))
     size = config.spec.input_size
     x = torch.empty((config.batch_size, config.input_ch, *size), device="meta")
-    model(x, x, train=True)
+    model(x, x if siamese and config.do_decoder_consistency else None, train=True)
     return shapes
 
 

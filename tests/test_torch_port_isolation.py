@@ -44,7 +44,11 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.splitlines()[-1])
     for module in ("pacingpseudo_torch.train.step", "pacingpseudo_torch.train.loop",
                    "pacingpseudo_torch.train.checkpoint", "pacingpseudo_torch.cli.train",
-                   "pacingpseudo_torch.utils.meters"):
+                   "pacingpseudo_torch.utils.meters", "pacingpseudo_torch.evals.infer",
+                   "pacingpseudo_torch.evals.hd", "pacingpseudo_torch.cli.inference",
+                   "pacingpseudo_torch.tools.prepare_data", "pacingpseudo_torch.tools.medio",
+                   "pacingpseudo_torch.cli.prepare_data",
+                   "pacingpseudo_torch.cli.scribble_tools"):
         assert module in loaded
     assert [m for m in loaded if _is_forbidden(m)] == []
 
