@@ -96,7 +96,9 @@ Phases, each of which exits non-zero on failure:
               same pool: 2 epochs of 3 steps with a checkpoint each epoch
               and the frozen-BN step from epoch 1; then a run stopped after
               epoch 0, its state restored bit for bit from its checkpoint,
-              and resumed to the end (``phase_loop``).
+              and resumed to the end (``phase_loop``).  Phases 11 and 12
+              run today's eager loop on streamed batches
+              (``steps_per_dispatch=1``, ``device_resident_data=off``).
 12. loop (upper bound) -- ``train_driver`` with the Upperbound session: 2
               epochs of 3 steps, a checkpoint each epoch (``backbone.*``
               keys only, the layout the JAX importer reads), the frozen-BN
@@ -112,13 +114,47 @@ Phases, each of which exits non-zero on failure:
               same slices and weights, no kernel launched; the forward's
               slices/s alone, the whole run's with HD95 in host threads,
               and the host metrics' ms a slice in one thread.
-14. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
+14. train (raw, graph) -- after phase 10, on the same pool: the train
+              augmentation captured in a CUDA graph equals the eager call
+              bit for bit after the generator is seeded; one replayed
+              update of the raw step (``train/graph.py``'s ``StepGraph``)
+              held against the eager update from the same state and seeds
+              (``_hold_replay``: losses, LeakyReLU branch flips, gradients
+              and updates, beside the spread of two more eager updates),
+              with Adam and with SGD momentum at the parity phases' size,
+              then at full width in bfloat16 for the Experiment step, the
+              Upperbound step and the Experiment step under the fused conv
+              impl, each followed by its median replay against the eager
+              raw step in this run (``_time_replay_and_eager``; both paths
+              count the same launches).
+15. loop (resident, graph) -- after phase 13: a seeded pool of 312
+              slices (``make_loop_pool``; fold 1 trains on 240: 20 steps
+              an epoch), the Experiment loop for 2 epochs with
+              ``steps_per_dispatch=8`` and the pool resident (dispatches of
+              8, 8 and 4; one capture an epoch, the frozen-BN graph in
+              epoch 1), in turns with today's eager streamed loop, two runs
+              each; a graph run's checkpoint restores into a fresh eager
+              state bit for bit; the wrappers count the same launches in
+              every run; the graph runs' per-epoch metrics held against the
+              eager runs', and again in float32 at init_ch 8.
+16. sweep  -- ``python -m pacingpseudo_torch.cli.sweep`` in a child process:
+              folds 0 and 1 of that pool, the Upperbound session at full
+              width, 8 steps and inference each; the fold JSONs, the
+              summary, the table, and a second call that reads the cache.
+17. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
               card per call, in a profiler trace of three calls at each of
-              their variants: last, so that no timed phase follows a
-              profiler session.
+              their variants; inside 4 replays of the raw step's graph the
+              profiler counts 4 x the eager step's ``fused_loss_fwd``,
+              ``fused_loss_bwd`` and ``warp_cubic`` kernels, and the
+              wrappers' counts add one a kernel a replay.
+18. profile_dir -- a CLI training run with ``--profile_dir`` (3 epochs of
+              2 steps, the graph path) writes one trace of epoch 1 with the
+              card's kernels and logs it.  The profiler phases run last, so
+              that no timed phase follows a profiler session.
 
-Phases 1-8 and 11-13 run the default conv impl (``"xla"``, the unfused
-ConvLayer) whatever ``PACING_CONV_IMPL`` says.
+Phases 1-8 and 11-18 run the default conv impl (``"xla"``, the unfused
+ConvLayer) whatever ``PACING_CONV_IMPL`` says, but for phase 14's fused
+timing.
 Prints the card's name and power limit first, a ``kernels`` JSON line
 before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,6 +163,7 @@ Imports nothing of JAX: it drives the port only.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -155,6 +192,12 @@ CONV_TIMING_REPS = 20
 # NVIDIA H100 80GB HBM3 (two summation orders; the same step run twice
 # differs by ~3e-6).
 ROUNDOFF_L2 = 5e-5
+# Relative L2 error of a leaf's update between a replayed and an eager
+# float32 step where no LeakyReLU branch differs: Adam's division by
+# sqrt(v) amplifies the gradients' roundoff where an element's moments
+# nearly cancel (measured 5.2e-5 at enc1 layer 1 on an NVIDIA H100 80GB
+# HBM3, against ROUNDOFF_L2 for the gradients).
+UPDATE_L2 = 1e-3
 # (label, n, ci, co, h, w): where the fused-ConvLayer kernels are held
 # against their plain versions, before the layers that _conv_check_shapes
 # adds: fused layers of the full-width step (the weak and strong streams
@@ -177,6 +220,9 @@ CONV_CHECK_SHAPES = (
 GEMMS = ("conv_stats", "conv_pad_out")
 CONV_KERNELS = ("conv_stats", "bn_sums", "conv_pad_out")
 FUSED_LAYERS = 18   # ConvLayers of the full-width step on the fused path
+# The loop phases 11 and 12 run the eager loop on streamed batches, the
+# path whose launches the wrappers count a step (the graph loop is phase 16).
+EAGER_LOOP = dict(steps_per_dispatch=1, device_resident_data="off")
 
 
 def _fail(msg: str) -> None:
@@ -1403,7 +1449,8 @@ def phase_loop(dev, counters, data_root, smi):
     from pacingpseudo_torch.train.state import create_train_state
 
     config = dataclasses.replace(_experiment_config(), epoch=2, ckp_interval=1,
-                                 ref_quirk_bn_eval_after_first_epoch=True)
+                                 ref_quirk_bn_eval_after_first_epoch=True,
+                                 **EAGER_LOOP)
     steps = 3
     runs = os.path.join(data_root, "runs")
     torch.cuda.synchronize()
@@ -1491,7 +1538,8 @@ def phase_loop_upper_bound(dev, counters, data_root, smi):
     from pacingpseudo_torch.train import loop
 
     config = dataclasses.replace(_upper_bound_config(), epoch=2, ckp_interval=1,
-                                 ref_quirk_bn_eval_after_first_epoch=True)
+                                 ref_quirk_bn_eval_after_first_epoch=True,
+                                 **EAGER_LOOP)
     steps = 3
     torch.cuda.synchronize()
     _reset_launch_counts(counters)
@@ -1741,6 +1789,648 @@ def _phase_fused_train(fc, name, counters, kernels, routes, dev, raw_batches, au
     return launches, counted, ms
 
 
+# ---------------------------------------------------------------------------
+# The CUDA-graph path: chunked dispatch, the resident pool, the sweep and
+# profile_dir
+# ---------------------------------------------------------------------------
+
+GRAPH_TIMED = 8          # timed steps a path in train (raw, graph)
+LOOP_EPOCHS = 2
+LOOP_PATIENTS = 13       # of 24 slices: fold 1 keeps 10 for training (240 slices)
+LOOP_DISPATCH = 8        # steps_per_dispatch of the graph loop: 20 steps = 8 + 8 + 4
+REPLAYS_PROFILED = 4
+# The graph loop's per-epoch metrics against the eager loop's, beside 4 x
+# the eager runs' own spread.  At full width in bfloat16 the runs part ways
+# by the weight gradients' varying summation order (two eager runs' epoch-1
+# loss_pce 0.9399 and 0.9274 on an NVIDIA H100 80GB HBM3); in float32 at
+# init_ch 8 on deterministic cuDNN much less (1.3618 and 1.3627).
+LOOP_RTOL = 5e-2
+LOOP_RTOL_F32 = 1e-3
+
+
+def _release_memory():
+    """Return the allocator's cached blocks to the card: the graph phases'
+    private pools cannot use them, nor can a child process."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _small_raw(seed, dev, n=2, s=64, c=4):
+    """A seeded raw canvas batch of the parity phases' size (the CPU tests'
+    form): noise image, random labels, scribbles on a tenth of the pixels."""
+    rs = np.random.RandomState(seed)
+    scribble = np.full((n, s, s), c, np.float32)
+    pick = rs.rand(n, s, s) < 0.1
+    scribble[pick] = rs.randint(0, c, pick.sum())
+    return {"image": torch.from_numpy(rs.randn(n, s, s).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rs.randint(0, c, (n, s, s)).astype(np.float32)).to(dev),
+            "scribble": torch.from_numpy(scribble).to(dev),
+            "size": torch.tensor([[s, s]] * n, dtype=torch.int32, device=dev)}
+
+
+def check_graph_augment(augment_fn, raws, dev):
+    """``augment_fn`` captured in a CUDA graph with its generator registered:
+    each replay, after the generator is seeded, equals the eager call from
+    the same seed bit for bit, on the full-width raw batches ``raws``."""
+    from pacingpseudo_torch.train.step import step_seed
+
+    gen = torch.Generator(device=dev)
+    static = {k: v.clone() for k, v in raws[0].items()}
+    stream, current = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        gen.manual_seed(1)
+        augment_fn(static, gen)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        graph.capture_begin()
+        out = augment_fn(static, gen)
+        graph.capture_end()
+    current.wait_stream(stream)
+    for i, raw in enumerate(raws[1:]):
+        seed = step_seed(1, i)
+        gen.manual_seed(seed)
+        want = augment_fn(raw, gen)
+        for k, v in raw.items():
+            static[k].copy_(v)
+        gen.manual_seed(seed)
+        graph.replay()
+        bad = [k for k in want if not torch.equal(out[k], want[k])]
+        _check(not bad, f"train (raw, graph): replayed augmentation differs from the eager "
+                        f"one in {bad} (batch {i})")
+    graph.reset()
+    print(f"train (raw, graph): the captured augmentation equals the eager one bit for bit "
+          f"on {len(raws) - 1} full-width raw batches ({sorted(out)})", flush=True)
+
+
+def _bn_fed_bias(name):
+    """A conv bias that feeds a BatchNorm: its true gradient is 0."""
+    return name.endswith(".conv.bias") or name == "aux_path.layer_bottleneck.1.bias"
+
+
+def _hold_replay(name, config, augment_fn, raws, dev):
+    """One replayed update of ``config``'s raw step against the eager update
+    from the same state and seeds, on ``raws[1]`` after an update on
+    ``raws[0]``.  The graph's first update runs eagerly (the warm-up) and the
+    step is captured (``StepGraph``); its state goes through a checkpoint
+    (the eager layout) into three fresh eager states; then the second update
+    is a replay on one side and the eager step on each of the others.
+
+    Two eager updates from one state may differ where the card adds in a
+    varying order (atomics): the largest difference of the second and third
+    from the first is the step's own spread (``yard``), taken in this run.
+    Each quantity is held at the larger of its fixed bound and 4 x yard:
+
+    * the losses, rtol 1e-4;
+    * the LeakyReLU branches that differ between the replay's forward and
+      the eager one (the ConvLayer outputs' signs), at most 1e-5 of them;
+    * each gradient leaf in L2, within 1e-2 of its norm where a branch
+      differs and ``ROUNDOFF_L2`` where none does (``phase_parity_fused``'s
+      bounds); a conv bias that feeds a BatchNorm, whose gradient is
+      roundoff, at most 4 x the eager ones' largest element + 1e-3 x its
+      conv weight's largest gradient;
+    * each leaf's update (new minus old), 1e-2 of its norm where a branch
+      differs and ``UPDATE_L2`` where none does (Adam divides by sqrt(v),
+      which turns an element's gradient roundoff into a larger relative
+      update error where its moments nearly cancel, and the replay's bias
+      correction is the capturable one, float32 on the card); a BN-fed
+      bias's within 2 lr, as ``tests/test_torch_port_step.py`` holds it.
+
+    Returns the phase line's summary."""
+    from pacingpseudo_torch.train import checkpoint as ckpt
+    from pacingpseudo_torch.train.graph import StepGraph
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import (make_pacing_train_step,
+                                               make_upper_bound_train_step, seed_step)
+
+    make = (make_upper_bound_train_step if config.session == "Upperbound"
+            else make_pacing_train_step)
+    state_g = create_train_state(config, device=dev, seed=11)
+    signs = {"graph": []}
+    hooks = _record_signs(state_g.model, signs["graph"])
+    step_g = make(config, 100, augment_fn=augment_fn)
+    gen_g = torch.Generator(device=dev)
+    graph = StepGraph()
+
+    def reseed(n):
+        seed_step(gen_g, dev, config.seed, n)
+
+    def as_batch(raw):
+        return raw
+
+    graph.run(step_g, state_g, raws[0], as_batch, gen_g, reseed)    # eager + capture
+    _check(graph.captures == 1 and graph.replays == 0 and state_g.step == 1,
+           f"{name}: {graph.captures} captures, {graph.replays} replays")
+    eager_runs = ("eager", "eager 2", "eager 3")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        ckpt.save_checkpoint(os.path.join(tmp, "ckp"), state_g)
+        states = {r: ckpt.restore_checkpoint(os.path.join(tmp, "ckp"),
+                                             create_train_state(config, device=dev, seed=5))
+                  for r in eager_runs}
+    _check(not any(g.get("capturable") for s in states.values()
+                   for g in s.optimizer.param_groups),
+           f"{name}: the checkpoint did not restore an eager optimizer")
+    before = {k: p.detach().clone() for k, p in state_g.model.named_parameters()}
+    metrics = {}
+    for r, state in states.items():
+        signs[r] = []
+        hooks += _record_signs(state.model, signs[r])
+        gen = torch.Generator(device=dev)
+        seed_step(gen, dev, config.seed, state.step)
+        metrics[r] = make(config, 100, augment_fn=augment_fn)(state, raws[1], gen)
+    metrics["graph"] = graph.run(step_g, state_g, raws[1], as_batch, gen_g, reseed)  # replay
+    torch.cuda.synchronize()
+    for hook in hooks:
+        hook.remove()
+    states["graph"] = state_g
+    _check(graph.replays == 1 and all(s.step == 2 for s in states.values()),
+           f"{name}: {graph.replays} replays, steps {[s.step for s in states.values()]}")
+    metrics = {r: {k: float(v) for k, v in m.items()} for r, m in metrics.items()}
+    grads = {r: {k: p.grad.clone() for k, p in s.model.named_parameters()}
+             for r, s in states.items()}
+    deltas = {r: {k: p.detach() - before[k] for k, p in s.model.named_parameters()}
+              for r, s in states.items()}
+    n_calls = len(signs["eager"])
+    signs["graph"] = signs["graph"][-n_calls:]      # the capture's, refreshed by the replay
+    n_signs = sum(t.numel() for t in signs["eager"])
+    flips = {r: _sign_flips(signs[r], signs["eager"]) for r in ("graph", *eager_runs[1:])}
+    state_g.optimizer.zero_grad(set_to_none=True)   # the replay's gradients live in the pool
+    graph.reset()
+    del states, signs, state_g, before
+
+    m_e, lr = metrics["eager"], metrics["eager"]["lr"]
+    for k in m_e:
+        yard = max(abs(metrics[r][k] - m_e[k]) for r in eager_runs[1:])
+        diff = abs(metrics["graph"][k] - m_e[k])
+        _check(diff <= max(1e-4 * abs(m_e[k]) + 1e-7, 4 * yard),
+               f"{name}: {k} {metrics['graph'][k]} replayed vs {m_e[k]} eager (eager "
+               f"runs' spread {yard})")
+    flip_yard = max(flips[r] for r in eager_runs[1:])
+    _check(flips["graph"] <= max(1e-5 * n_signs, 4 * flip_yard),
+           f"{name}: {flips['graph']} of {n_signs} LeakyReLU branches differ (eager runs' "
+           f"spread {flip_yard})")
+    bounds = {"gradient": 1e-2 if flips["graph"] else ROUNDOFF_L2,
+              "update": 1e-2 if flips["graph"] else UPDATE_L2}
+    worst = {t: (0.0, "", 0.0) for t in bounds}
+    g_e, d_e = grads["eager"], deltas["eager"]
+    for k in g_e:
+        if _bn_fed_bias(k):
+            scale = 1e-3 * float(g_e[k[:-4] + "weight"].abs().max())
+            cap = max(float(grads[r][k].abs().max()) for r in eager_runs)
+            got = float(grads["graph"][k].abs().max())
+            _check(got <= 4 * cap + scale,
+                   f"{name}: the BN-fed bias gradient {k} reaches {got}; eager {cap}")
+            e = float((deltas["graph"][k] - d_e[k]).abs().max())
+            _check(e <= 2 * lr, f"{name}: update of the BN-fed bias {k} max err {e}")
+            continue
+        for tag, ours in (("gradient", grads), ("update", deltas)):
+            want = ours["eager"][k]
+            norm = float(want.norm())
+            err = float((ours["graph"][k] - want).norm())
+            yard = max(float((ours[r][k] - want).norm()) for r in eager_runs[1:])
+            _check(err <= max(bounds[tag] * norm, 4 * yard),
+                   f"{name}: {tag} of {k} L2 err {err}, norm {norm}, eager runs' spread "
+                   f"{yard}")
+            if not k.endswith("bias") and err / max(norm, 1e-30) > worst[tag][0]:
+                worst[tag] = (err / max(norm, 1e-30), k, yard / max(norm, 1e-30))
+    return (f"replayed update == eager update over {len(g_e)} leaves; "
+            + "; ".join(f"worst relative L2 error of a weight's {t} {worst[t][0]:.2e} "
+                        f"({worst[t][1]}; the eager runs' {worst[t][2]:.2e}), held at "
+                        f"max({bounds[t]:g}, 4 x theirs)" for t in bounds)
+            + f"; {flips['graph']} of {n_signs} LeakyReLU branches differ (eager runs "
+            f"{[flips[r] for r in eager_runs[1:]]}); loss_total "
+            f"{metrics['graph']['loss_total']:.6f} replayed, {m_e['loss_total']:.6f} eager "
+            f"(eager runs {[round(metrics[r]['loss_total'], 6) for r in eager_runs[1:]]})")
+
+
+def phase_graph_parity(dev, optimizer):
+    """``_hold_replay`` for the Experiment step with the augmentation inside
+    at the parity phases' size (2 x 64 x 64, init_ch 8, float32, TF32 off,
+    deterministic cuDNN), with ``optimizer``."""
+    from pacingpseudo_torch.aug.engine import make_train_augment_fn
+    from pacingpseudo_torch.aug.params import BaseAugParams, StrongAugParams
+    from pacingpseudo_torch.config import ExperimentConfig
+
+    name = f"train (raw, graph) parity, {optimizer}"
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        config = ExperimentConfig(
+            num_classes=4, ignored_index=4, init_ch=8, hid_ch=16, batch_size=2,
+            session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
+            do_aux_path=True, do_memory=True, compute_dtype="float32",
+            optimizer=optimizer).validate()
+        augment_fn = make_train_augment_fn(
+            BaseAugParams(crop_size=(64, 64), num_classes=4, ignored_index=4),
+            StrongAugParams.color(1.0), True)
+        summary = _hold_replay(name, config, augment_fn,
+                               [_small_raw(700 + i, dev) for i in range(2)], dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"{name}: {summary}", flush=True)
+
+
+def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters):
+    """The raw step of ``config``'s session on ``raws``: the eager step
+    (``make_chunked_train_step(step, 1)``) and the replay of its graph
+    (``chunk`` = ``len(raws)``), each from a fresh seeded state; per path
+    the first dispatch warms up (for the graph: the eager update, the
+    capture and the replays of the rest), then ``len(raws)`` updates are
+    timed one dispatch each with a sync.  Both paths make ``2 len(raws)``
+    updates, and the wrappers' counts must be equal on both.  Returns
+    (eager median ms, replay median ms, the graph path's launches)."""
+    from pacingpseudo_torch.train.graph import StepGraph
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import (make_chunked_train_step,
+                                               make_pacing_train_step,
+                                               make_upper_bound_train_step)
+
+    make = (make_upper_bound_train_step if config.session == "Upperbound"
+            else make_pacing_train_step)
+    k = len(raws)
+    stack = {key: torch.stack([r[key] for r in raws]) for key in raws[0]}
+    medians, launches = {}, {}
+    for path in ("eager", "graph"):
+        graph = StepGraph()
+        state = create_train_state(config, device=dev)
+        chunked = make_chunked_train_step(make(config, 1000, augment_fn=augment_fn),
+                                          k if path == "graph" else 1, graph)
+        gen = torch.Generator(device=dev)
+        torch.cuda.synchronize()
+        _reset_launch_counts(counters)
+        if path == "graph":
+            chunked(state, stack, gen, config.seed)
+        else:
+            for i in range(k):
+                chunked(state, {key: v[i:i + 1] for key, v in stack.items()}, gen, config.seed)
+        ms, losses = [], None
+        for i in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = chunked(state, {key: v[i:i + 1] for key, v in stack.items()}, gen,
+                             config.seed)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches[path] = _launch_counts(counters)
+        _check(all(math.isfinite(float(v)) for v in losses.values()),
+               f"{name}: non-finite losses on the {path} path: {losses}")
+        want = (1, 2 * k - 1) if path == "graph" else (0, 0)
+        _check((graph.captures, graph.replays) == want,
+               f"{name}: {graph.captures} captures and {graph.replays} replays on the {path} "
+               f"path, want {want}")
+        medians[path] = statistics.median(ms)
+        print(f"{name}: {path} step ms {[round(t, 3) for t in ms]}", flush=True)
+        state.optimizer.zero_grad(set_to_none=True)   # a replay's grads live in the pool
+        graph.reset()
+        del state, chunked, graph
+        _release_memory()
+    _check(launches["graph"] == launches["eager"],
+           f"{name}: launches {launches['graph']} on the graph path, {launches['eager']} "
+           f"eager, in {2 * k} updates each")
+    return medians["eager"], medians["graph"], launches["graph"]
+
+
+def phase_graph_train(dev, counters, raw_batches, augment_fn, ub_augment_fn, fc, smi):
+    """``train (raw, graph)``: the captured augmentation bit for bit, one
+    replayed update against the eager one (Adam and SGD) at the parity
+    size; then for the Experiment step, the Upperbound step and the
+    Experiment step under the fused conv impl at full width, one replayed
+    update held against the eager one (``_hold_replay``) and the median
+    replay against the eager raw step in this run.  Returns each graph
+    path's launches (the warm-up updates and the replays)."""
+    check_graph_augment(augment_fn, [next(raw_batches) for _ in range(4)], dev)
+    for optimizer in ("adam", "momentum"):
+        phase_graph_parity(dev, optimizer)
+    raws = [next(raw_batches) for _ in range(GRAPH_TIMED)]
+    readings, paths = [], {}
+    runs = (("Experiment", _experiment_config(), augment_fn, "xla"),
+            ("Upperbound", _upper_bound_config(), ub_augment_fn, "xla"),
+            ("Experiment, fused conv", _experiment_config(), augment_fn, "fused"))
+    for label, config, fn, impl in runs:
+        name = f"train (raw, graph) {label}"
+        fc.set_conv_impl(impl)
+        try:
+            print(f"{name}: {_hold_replay(name, config, fn, raws[:2], dev)}", flush=True)
+            _release_memory()
+            eager, replay, launches = _time_replay_and_eager(name, config, fn, raws, dev,
+                                                             counters)
+        finally:
+            fc.set_conv_impl("xla")
+        paths[f"train (raw, graph, {label})"] = launches
+        readings.append(f"{label}: eager {eager:.3f} ms, replay {replay:.3f} ms "
+                        f"({config.batch_size * 1e3 / replay:.1f} slices/s)")
+    print(f"train (raw, graph): {smi}: median of {GRAPH_TIMED} steps, "
+          f"{'; '.join(readings)}", flush=True)
+    return paths
+
+
+def make_loop_pool(root, seed, patients=LOOP_PATIENTS, per_patient=TEST_PATIENT_SLICES):
+    """A seeded synthetic CHAOS pool of ``patients x per_patient`` 256x256
+    slices for the graph loop and the sweep: the phantoms of
+    ``write_synthetic_dataset`` with grid scribbles (the label on every 16th
+    row and column, ignore elsewhere: the skeleton scribbles take ~0.15 s a
+    slice of host time) and its patient-level five-fold split (the test set
+    of fold k: patients k, k + 5, ...).  Fold 1 trains on 10 patients (240
+    slices: 20 steps of 12) and validates on 3."""
+    from pacingpseudo_torch.data.synthetic import make_phantom
+
+    spec = _experiment_config().spec
+    t0 = time.perf_counter()
+    slices = os.path.join(root, "chaos", "slices")
+    split = os.path.join(root, "chaos", "train_test_split", "five_fold_split", "t1")
+    os.makedirs(slices)
+    os.makedirs(split)
+    rng = np.random.RandomState(seed)
+    grid = np.zeros(spec.input_size, bool)
+    grid[::16] = True
+    grid[:, ::16] = True
+    names = {p: [] for p in range(patients)}
+    for i in range(patients * per_patient):
+        img, lab = make_phantom(rng, spec.input_size, spec.num_classes, "easy")
+        scb = np.where(grid, lab, spec.ignored_index).astype(np.float32)
+        uid = f"pat{i // per_patient:03d}_slice{i % per_patient:03d}"
+        np.savez(os.path.join(slices, uid + ".npz"), uid=uid, img=img,
+                 lab=lab.astype(np.float32), scb=scb)
+        names[i // per_patient].append(f"slices/{uid}.npz")
+    for fold in range(5):
+        test = set(range(fold, patients, 5))
+        for part, keep in (("train", False), ("test", True)):
+            with open(os.path.join(split, f"{part}_fold{fold}.txt"), "w") as f:
+                f.write("\n".join(n for p in range(patients) if (p in test) == keep
+                                  for n in names[p]) + "\n")
+    print(f"loop (resident, graph): wrote {patients * per_patient} synthetic "
+          f"{spec.input_size} slices of {patients} patients in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _loop_epochs(run_dir):
+    """``log.txt`` of a loop run and its epoch lines: (s, slices/s) and the
+    metrics of each epoch."""
+    import re
+
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    lines = re.findall(r"epoch: \d+, (.*), ([\d.]+) s/epoch, ([\d.]+) slices/s", log)
+    return log, [(float(a), float(b)) for _, a, b in lines], [
+        {k: float(v) for k, v in (kv.split(": ") for kv in m.split(", "))}
+        for m, _, _ in lines]
+
+
+def _loop_metrics_close(tag, graph_runs, eager_runs, rtol):
+    """Each graph run's per-epoch metrics against each eager run's: within
+    ``rtol`` of the eager value, or 4 x the eager runs' own spread where
+    that is larger, + 1e-6 (the log's rounding)."""
+    for g in graph_runs:
+        for e in eager_runs:
+            for epoch, (mg, me) in enumerate(zip(g, e)):
+                for k, want in me.items():
+                    yard = max(abs(o[epoch][k] - want) for o in eager_runs)
+                    # + 1e-6: the log prints six decimals
+                    _check(abs(mg[k] - want) <= max(rtol * abs(want), 4 * yard) + 1e-6,
+                           f"{tag}: epoch {epoch} {k} {mg[k]} on the graph path, {want} "
+                           f"eager (eager runs' spread {yard})")
+
+
+def _loop_run(loop, config, data_root, run_dir, dev, counters):
+    """One ``_train_driver`` run with the launch counts set to 0 just before
+    and read just after: (run_dir, state, launches)."""
+    torch.cuda.synchronize()
+    _reset_launch_counts(counters)
+    run_dir, state = loop._train_driver(config, data_root, run_dir, device=dev)
+    torch.cuda.synchronize()
+    return run_dir, state, _launch_counts(counters)
+
+
+def phase_loop_graph(dev, counters, data_root, smi):
+    """``loop (resident, graph)``: the Experiment session at full width with
+    ``ref_quirk_bn_eval_after_first_epoch`` on the 240 training slices of
+    ``make_loop_pool``'s fold 1, 2 epochs of 20 steps with no cut, a
+    checkpoint each epoch: ``steps_per_dispatch=8`` with the pool resident
+    (dispatches of 8, 8 and the remainder 4, each update a replay but the
+    first of an epoch), in turns with ``steps_per_dispatch=1`` streamed
+    (today's eager loop), two runs each.  Checks finite losses, one capture
+    an epoch and the frozen-BN graph in epoch 1 (BatchNorm statistics equal
+    in ``ckp_0`` and ``ckp_1``, the weights not), that the graph run's
+    checkpoint restores into a fresh eager state bit for bit, that the
+    wrappers count the same launches on both paths (40 updates and the two
+    figure warps), and each graph run's per-epoch metrics against the eager
+    runs' (``LOOP_RTOL``, or 4 x the eager runs' spread).  Then the same
+    loop at init_ch 8 in float32 with TF32 off and deterministic cuDNN,
+    eager, graph, eager, held at ``LOOP_RTOL_F32``.  Prints each run's
+    epochs (s, slices/s) and metrics."""
+    import dataclasses
+
+    from pacingpseudo_torch.train import checkpoint as ckpt
+    from pacingpseudo_torch.train import loop
+    from pacingpseudo_torch.train.state import create_train_state
+
+    base = dataclasses.replace(_experiment_config(), epoch=LOOP_EPOCHS, ckp_interval=1,
+                               ref_quirk_bn_eval_after_first_epoch=True)
+    _release_memory()
+    paths = {"graph": dict(steps_per_dispatch=LOOP_DISPATCH, device_resident_data="on"),
+             "eager": dict(steps_per_dispatch=1, device_resident_data="off")}
+    readings, launches, metrics = [], {}, {"graph": [], "eager": []}
+    for turn, path in enumerate(("graph", "eager", "graph", "eager")):
+        config = dataclasses.replace(base, **paths[path])
+        run_dir, state, launches[turn] = _loop_run(
+            loop, config, data_root, os.path.join(data_root, "runs", f"{path}{turn}"), dev,
+            counters)
+        log, epochs, epoch_metrics = _loop_epochs(run_dir)
+        metrics[path].append(epoch_metrics)
+        steps = state.step // LOOP_EPOCHS
+        _check(steps == 20 and len(epochs) == LOOP_EPOCHS,
+               f"loop (resident, graph) {path}: {steps} steps an epoch, epoch lines {epochs}")
+        _check("epoch 001 on: frozen-BN step" in log
+               and all(math.isfinite(v) for m in epoch_metrics for v in m.values()),
+               f"loop (resident, graph) {path}: no frozen-BN step, or metrics {epoch_metrics}")
+        if path == "graph":
+            _check("CUDA graph: 2 captures, 38 replays" in log
+                   and "training data resident on the device" in log,
+                   f"loop (resident, graph): the graph path did not run as planned")
+            sd0, sd1 = (torch.load(os.path.join(run_dir, "ckps", f"ckp_{e}",
+                                                ckpt.MODEL_FILE)) for e in (0, 1))
+            stats = [k for k in sd0 if k.endswith(("running_mean", "running_var"))]
+            _check(all(torch.equal(sd0[k], sd1[k]) for k in stats)
+                   and not torch.equal(sd0["backbone.final_conv.weight"],
+                                       sd1["backbone.final_conv.weight"]),
+                   "loop (resident, graph): epoch 1 moved the BatchNorm statistics or not "
+                   "the weights")
+            fresh = ckpt.restore_checkpoint(os.path.join(run_dir, "ckps", "ckp_1"),
+                                            create_train_state(config, device=dev, seed=7))
+            count = _check_states_equal("loop (resident, graph): ckp_1 restored eagerly",
+                                        fresh, state)
+            del fresh
+        readings.append(f"{path}: epochs (s, slices/s) {epochs}")
+        print(f"loop (resident, graph) {path} run {turn}: {smi}: epochs (s, slices/s) "
+              f"{epochs}, metrics {epoch_metrics}", flush=True)
+        del state
+        _release_memory()
+    _check(all(launches[t] == launches[0] for t in launches),
+           f"loop (resident, graph): the wrappers' launch counts differ between the runs: "
+           f"{launches}")
+    _loop_metrics_close("loop (resident, graph)", metrics["graph"], metrics["eager"], LOOP_RTOL)
+    print(f"loop (resident, graph): {smi}: in turns, 20 steps an epoch, "
+          f"{'; '.join(readings)}; the graph run's ckp_1 restores into a fresh eager state "
+          f"bit for bit ({count} tensors); launches in each run, graph and eager alike: "
+          f"{ {k: v for k, v in launches[0].items() if v} }; the graph runs' metrics within "
+          f"{LOOP_RTOL:g} of the eager runs' (or 4 x their spread)", flush=True)
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    small = {"graph": [], "eager": []}
+    try:
+        for turn, path in enumerate(("eager", "graph", "eager")):
+            config = dataclasses.replace(base, init_ch=8, hid_ch=16, compute_dtype="float32",
+                                         **paths[path])
+            run_dir, state, _ = _loop_run(
+                loop, config, data_root, os.path.join(data_root, "runs", f"f32_{path}{turn}"),
+                dev, counters)
+            small[path].append(_loop_epochs(run_dir)[2])
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"loop (resident, graph) float32: init_ch 8, deterministic: graph {small['graph']}; "
+          f"eager {small['eager']}", flush=True)
+    _loop_metrics_close("loop (resident, graph) float32", small["graph"], small["eager"],
+                        LOOP_RTOL_F32)
+    print(f"loop (resident, graph) float32: the graph run's metrics within {LOOP_RTOL_F32:g} "
+          f"of the eager runs' (or 4 x their spread)", flush=True)
+    return launches[0]
+
+
+def _run_cli(module, args, timeout=600):
+    """``python -m <module> <args>`` in a child process on this card;
+    returns its stdout, fails with its stderr's tail."""
+    _release_memory()     # the child needs the memory this process caches
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    _check(proc.returncode == 0, f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_sweep(data_root, smi):
+    """``python -m pacingpseudo_torch.cli.sweep`` on the card: the
+    Upperbound session at full width, folds 0 and 1 of ``make_loop_pool``'s
+    pool, 1 epoch of 8 steps each (lr 0.003, so that a fold predicts some
+    foreground and writes the ``best_ckp`` inference reads), inference on
+    each fold's test split.  Checks the fold JSONs, the summary (the fold
+    means) and the table, then a second call that reads both folds from the
+    cache."""
+    out = os.path.join(data_root, "sweep")
+    args = ["--session", "Upperbound", "--tag", "sweep", "--folds", "0", "1",
+            "--epoch", "1", "--max_steps_per_epoch", "8", "--lr", "0.003",
+            "--no-tb_figures", "--data_root", data_root, "--root", data_root,
+            "--sweep_out", out]
+    t0 = time.perf_counter()
+    stdout = _run_cli("pacingpseudo_torch.cli.sweep", args)
+    t1 = time.perf_counter()
+    folds = {f: json.load(open(os.path.join(out, f"fold{f}.json"))) for f in (0, 1)}
+    summary = json.load(open(os.path.join(out, "sweep_summary.json")))
+    _check(all(0.0 <= r["dice"] <= 1.0 and r["num_patients"] >= 1 for r in folds.values())
+           and math.isclose(summary["overall_dice"],
+                            (folds[0]["dice"] + folds[1]["dice"]) / 2, rel_tol=1e-12)
+           and "| DSC |" in open(os.path.join(out, "sweep_table.md")).read()
+           and "| DSC |" in stdout,
+           f"sweep: fold results {folds} and summary {summary}")
+    again = _run_cli("pacingpseudo_torch.cli.sweep", args)
+    t2 = time.perf_counter()
+    _check("fold 0: cached" in again and "fold 1: cached" in again,
+           f"sweep: the second call did not read the cache:\n{again[-2000:]}")
+    print(f"sweep: {smi}: 2 folds trained and evaluated in {t1 - t0:.1f} s (child process), "
+          f"Dice {folds[0]['dice']:.4f} / {folds[1]['dice']:.4f}, HD95 "
+          f"{folds[0]['hd95']:.2f} / {folds[1]['hd95']:.2f}; the second call read both folds "
+          f"from the cache in {t2 - t1:.1f} s", flush=True)
+
+
+# The profiler's kernel names of the wrappers' kernels on the raw step's path.
+REPLAY_KERNELS = {"fused_loss_fwd": "fwd_kernel", "fused_loss_bwd": "bwd_kernel",
+                  "warp_cubic": "warp_cubic_kernel"}
+
+
+def check_graph_replay_launches(dev, raw, augment_fn, counters):
+    """Kernels inside replays, by the profiler: the raw step on the batch
+    ``raw``, one eager update and ``REPLAYS_PROFILED`` replays of its graph
+    (captured outside the traces, each trace after one untraced call); the
+    replays must run ``REPLAYS_PROFILED`` x the eager step's
+    ``fused_loss_fwd``, ``fused_loss_bwd`` and ``warp_cubic`` kernels, and
+    the wrappers' counts must add one a kernel a replay, traced or not.
+    Returns the profiler's counts in the replays by wrapper name."""
+    from pacingpseudo_torch.train.graph import StepGraph
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import make_pacing_train_step, seed_step
+
+    config = _experiment_config()
+    state = create_train_state(config, device=dev)
+    step = make_pacing_train_step(config, 1000, augment_fn=augment_fn)
+    gen = torch.Generator(device=dev)
+    graph = StepGraph()
+
+    def reseed(n):
+        seed_step(gen, dev, config.seed, n)
+
+    def as_batch(r):
+        return r
+
+    graph.run(step, state, raw, as_batch, gen, reseed)     # eager + capture
+    kernels = tuple(REPLAY_KERNELS)
+
+    def count(names):
+        return {k: sum(REPLAY_KERNELS[k] in n for n in names) for k in kernels}
+
+    eager = count(_kernels_launched(lambda: (reseed(state.step), step(state, raw, gen)),
+                                    calls=1))
+    replays = graph.replays
+    _reset_launch_counts(counters)
+    got = count(_kernels_launched(lambda: graph.run(step, state, raw, as_batch, gen, reseed),
+                                  calls=REPLAYS_PROFILED))
+    counted = {k: v for k, v in _launch_counts(counters).items() if v}
+    _check(graph.captures == 1 and graph.replays == replays + REPLAYS_PROFILED + 1
+           and all(eager[k] == 1 for k in kernels)
+           and all(got[k] == REPLAYS_PROFILED * eager[k] for k in kernels)
+           and counted == {k: REPLAYS_PROFILED + 1 for k in kernels},
+           f"train (raw, graph): the profiler saw {got} in {REPLAYS_PROFILED} replays, "
+           f"{eager} in one eager step ({graph.captures} captures); the wrappers counted "
+           f"{counted} in {REPLAYS_PROFILED + 1} replays")
+    state.optimizer.zero_grad(set_to_none=True)
+    graph.reset()
+    print(f"train (raw, graph): kernels inside {REPLAYS_PROFILED} replays (profiler) {got}, "
+          f"in one eager step {eager}; the wrappers counted {counted} in "
+          f"{REPLAYS_PROFILED + 1} replays", flush=True)
+    return got
+
+
+def phase_profile_dir(data_root, smi):
+    """``--profile_dir``: a CLI training run (the Experiment session at full
+    width, 3 epochs of 2 steps, the graph path) writes one
+    ``torch.profiler`` trace of epoch 1 with the card's kernels in it, and
+    logs it."""
+    profile = os.path.join(data_root, "profile")
+    run_dir = os.path.join(data_root, "runs", "profiled")
+    t0 = time.perf_counter()
+    _run_cli("pacingpseudo_torch.cli.train", [
+        "--session", "Experiment", "--do_loss_ent", "--do_decoder_consistency",
+        "--do_aux_path", "--do_memory", "--tag", "profiled", "--epoch", "3",
+        "--max_steps_per_epoch", "2", "--no-tb_figures", "--data_root", data_root,
+        "--run_dir", run_dir, "--profile_dir", profile])
+    traces = os.listdir(profile)
+    _check(traces == ["trace_epoch001.json"], f"profile_dir: traces {traces}")
+    path = os.path.join(profile, traces[0])
+    events = json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    _check(len(kernels) > 0 and f"profiler trace written to {path}" in log,
+           f"profile_dir: {len(kernels)} kernels in the trace, or no log line")
+    print(f"profile_dir: {smi}: the CLI run ({time.perf_counter() - t0:.1f} s) wrote "
+          f"{traces[0]} ({os.path.getsize(path)} bytes, {len(kernels)} kernel events) and "
+          f"logged it", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs on a GPU only")
@@ -1843,6 +2533,9 @@ def main() -> None:
         ub_fused_launches, ub_routes, ub_fused_ms = _phase_fused_train(
             fc, "train (raw, upper bound, fused conv)", counters, ub_fused_kernels,
             ub_fused_routes, dev, raw_batches, ub_augment_fn, ub_config)
+        graph_paths = phase_graph_train(dev, counters, raw_batches, augment_fn,
+                                        ub_augment_fn, fc, smi)
+        replay_raw = next(raw_batches)
         raw_batches.close()
         print(f"train (raw, upper bound): {smi}: median step {ub_ms:.3f} ms "
               f"({ub_config.batch_size * 1e3 / ub_ms:.1f} slices/s), {ub_fused_ms:.3f} ms "
@@ -1856,13 +2549,21 @@ def main() -> None:
         phase_inference(dev, counters, test_root,
                         (("upper bound (bare)", ub_config, ub_checkpoint),
                          ("experiment (siamese)", config, exp_checkpoint)), smi)
+        loop_root = os.path.join(root, "loop")
+        make_loop_pool(loop_root, config.seed)
+        loop_launches = phase_loop_graph(dev, counters, loop_root, smi)
+        phase_sweep(loop_root, smi)
 
-    check_bn_sums_launches(fc, dev)
-    check_fused_loss_launches(fl, dev)
+        # Profiler sessions last: none is followed by a timed phase.
+        check_bn_sums_launches(fc, dev)
+        check_fused_loss_launches(fl, dev)
+        replay_launches = check_graph_replay_launches(dev, replay_raw, augment_fn, counters)
+        phase_profile_dir(loop_root, smi)
     paths = {"train (raw)": launches, f"train (raw, {other_route} warp)": other_launches,
              "train (raw, fused conv)": fused_launches,
              "train (raw, upper bound)": ub_launches,
-             "train (raw, upper bound, fused conv)": ub_fused_launches}
+             "train (raw, upper bound, fused conv)": ub_fused_launches,
+             **graph_paths, "loop (resident, graph)": loop_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel
@@ -1875,9 +2576,15 @@ def main() -> None:
             row["gemm_routes"] = routes[row["name"]]
             row["gemm_routes_upper_bound"] = ub_routes[row["name"]]
     for row in rows + conv_rows:
-        # The launches of every timed path (8 steps each) that runs the kernel.
+        # The launches of every path that runs the kernel, as its wrapper
+        # counts them: 8 steps a timed eager path, 16 updates a timed graph
+        # path (its eager warm-ups and the replays; the capture launches
+        # nothing), 40 updates and the figure warps in a graph loop run.
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()
                                    if n.get(row["name"])}
+        if row["name"] in replay_launches:
+            row["profiled_in_replays"] = {f"{REPLAYS_PROFILED} replays of the raw step":
+                                          replay_launches[row["name"]]}
     print(json.dumps({"kernels": rows + conv_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

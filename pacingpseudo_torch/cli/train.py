@@ -9,9 +9,13 @@ Every flag of the JAX package's parser, with its name and default
 (reference train_chaos.py:23-179, upper_bound_chaos.py:81).  The device
 is the reference's own ``--gpu``: a CUDA index (``0`` -> ``cuda:0``, the
 default) or ``cpu``.  There is no fallback: without a CUDA device, ``--gpu
-0`` fails.  The flags that only steer the JAX package's TPU execution
-(``--s2d_hires``, ``--steps_per_dispatch``, ``--device_resident_data``,
-``--spatial_shards``, ``--num_devices``, ``--profile_dir``) parse and are
+0`` fails.  ``--steps_per_dispatch`` (updates a dispatch: on a card with
+more than 1, replays of the step captured as a CUDA graph) and
+``--device_resident_data`` (``auto``/``on``/``off``: the training pool on
+the device) choose how the loop feeds the step (``train/loop.py``), and
+``--profile_dir`` gets a ``torch.profiler`` trace of the second epoch.
+The flags that only steer the JAX package's TPU execution
+(``--s2d_hires``, ``--spatial_shards``, ``--num_devices``) parse and are
 ignored, and so are the TPU preflight and the XLA compile cache.
 ``--session Upperbound`` trains the fully supervised bare model
 (upper_bound_chaos.py), with ``--loss_dice``.
@@ -130,8 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     # Upper bound (upper_bound_chaos.py:81)
     p.add_argument("--loss_dice", type=_str2bool, nargs="?",
                    const=True, default=True)
-    # Extensions of the JAX package; the TPU-only ones parse and are ignored
-    # by the port (config.py)
+    # Extensions of the JAX package; --s2d_hires, --spatial_shards and
+    # --num_devices parse and are ignored by the port (config.py)
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
@@ -171,9 +175,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True,
                    help="per-epoch TB figure panels (host-side matplotlib "
                         "rendering; --no-tb_figures for throughput studies)")
-    p.add_argument("--steps_per_dispatch", type=int, default=8)
+    p.add_argument("--steps_per_dispatch", type=int, default=8,
+                   help="updates a dispatch; on a card above 1 each is a replay "
+                        "of the step captured as a CUDA graph")
     p.add_argument("--device_resident_data", type=str, default="auto",
-                   choices=["auto", "on", "off"])
+                   choices=["auto", "on", "off"],
+                   help="stage the training pool on the device ('auto': when "
+                        "it takes under 6 GiB)")
     p.add_argument("--resume", action="store_true", default=False)
     p.add_argument("--run_dir", type=str, default="",
                    help="use this exact run directory (required to --resume "
@@ -209,8 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_size", type=int, nargs=2, default=None,
                    help="override the dataset crop size (smoke runs)")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="accepted for CLI compatibility; not ported (the "
-                        "JAX package writes a profiler trace here)")
+                   help="write a torch.profiler trace of the second epoch "
+                        "(train and validation) here")
     return p
 
 

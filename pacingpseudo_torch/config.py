@@ -6,9 +6,9 @@ the same run in the other.  The port keeps its own copy instead of
 importing it: nothing in ``pacingpseudo_torch`` imports the JAX package.
 
 Knobs that only steer the JAX package's TPU execution (``s2d_hires``,
-``steps_per_dispatch``, ``device_resident_data``, ``spatial_shards``,
-``num_devices``) are kept for argv compatibility and are not read by the
-port.  ``use_pallas_loss`` keeps its name and selects the port's fused
+``spatial_shards``, ``num_devices``) are kept for argv compatibility and
+are not read by the port.  ``steps_per_dispatch`` and
+``device_resident_data`` steer the port's loop too (``train/loop.py``).  ``use_pallas_loss`` keeps its name and selects the port's fused
 CUDA loss kernel: ``auto`` takes it when the logits lie on a CUDA device.
 """
 from __future__ import annotations
@@ -169,9 +169,10 @@ class ExperimentConfig:
                                           # high-res stage-1 blocks (JAX
                                           # package only; the port runs the
                                           # logical layout)
-    steps_per_dispatch: int = 8           # train steps scanned into one XLA
-                                          # dispatch (amortises host->device
-                                          # dispatch latency; 1 disables)
+    steps_per_dispatch: int = 8           # train steps a dispatch (JAX: one
+                                          # scanned XLA program; the port:
+                                          # replays of a CUDA graph of the
+                                          # step on a card; 1 disables)
     device_resident_data: str = "auto"    # stage the whole training set in
                                           # HBM (f16/u8) and send only batch
                                           # indices per step: auto (single

@@ -15,7 +15,9 @@ Batches are "raw canvas" dicts:
       (image pad 0, label/scribble pad ``ignored_index``)
     size: (N, 2) int32 live extents (h, w)
 and are identical for CHAOS/ACDC/LVSC: the dataset is a config axis, not a
-class hierarchy.  :func:`raw_batch_to_device` moves one to the device.
+class hierarchy.  :func:`raw_batch_to_device` moves one to the device;
+training batches go up rounded by :func:`shrink_raw` (float16 image,
+uint8 label/scribble), as the JAX loop uploads them.
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ import numpy as np
 import torch
 
 RAW_KEYS = ("image", "label", "scribble", "size")
+# Host dtypes of a raw batch, as loaded and as :func:`shrink_raw` rounds it.
+FULL_DTYPES = {"image": np.float32, "label": np.float32, "scribble": np.float32,
+               "size": np.int32}
+SHRUNK_DTYPES = {"image": np.float16, "label": np.uint8, "scribble": np.uint8,
+                 "size": np.int32}
 
 
 def load_npz_slice(path: str) -> Dict[str, np.ndarray]:
@@ -183,14 +190,49 @@ class BatchLoader:
             stop.set()
 
 
-def raw_batch_to_device(batch: Dict[str, np.ndarray], device="cuda"
-                        ) -> Dict[str, torch.Tensor]:
+def shrink_raw(raw: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The raw batch the JAX loop uploads for training (``_shrink_raw``,
+    ``pacingpseudo_tpu/train/loop.py:195-208``): image float16, label and
+    scribble uint8 (exact for their values), ``size`` and any other key as
+    they are.  The augmentation casts back to float32 on the device; the
+    image keeps float16's rounding (~1e-3 relative)."""
+    out = dict(raw)
+    if out["image"].dtype != np.float16:
+        out["image"] = out["image"].astype(np.float16)
+    for k in ("label", "scribble"):
+        if k in out and out[k].dtype != np.uint8:
+            out[k] = out[k].astype(np.uint8)
+    return out
+
+
+def raw_batch_to_device(batch: Dict[str, np.ndarray], device="cuda",
+                        shrink: bool = False) -> Dict[str, torch.Tensor]:
     """Move a raw canvas batch to ``device``: ``image/label/scribble``
-    (N, S, S) float32 and ``size`` (N, 2) int32.  ``uid`` stays on the host
+    (N, S, S) float32 and ``size`` (N, 2) int32, or with ``shrink`` the
+    :func:`shrink_raw` dtypes (float16, uint8).  ``uid`` stays on the host
     and is not part of the result."""
+    if shrink:
+        batch = shrink_raw(batch)
+    dtypes = SHRUNK_DTYPES if shrink else FULL_DTYPES
     out = {}
     for k in RAW_KEYS:
-        dtype = np.int32 if k == "size" else np.float32
-        a = np.ascontiguousarray(batch[k], dtype=dtype)
+        a = np.ascontiguousarray(batch[k], dtype=dtypes[k])
         out[k] = torch.from_numpy(a).to(device)
+    return out
+
+
+def stack_to_device(batches: Sequence[Dict[str, np.ndarray]], device
+                    ) -> Dict[str, torch.Tensor]:
+    """``K`` raw batches rounded by :func:`shrink_raw` and stacked on a
+    leading axis, ``(K, N, S, S)`` and ``size`` ``(K, N, 2)``, in one copy a
+    key; from pinned memory when ``device`` is a card."""
+    device = torch.device(device)
+    shrunk = [shrink_raw(b) for b in batches]
+    out = {}
+    for k in RAW_KEYS:
+        host = torch.from_numpy(np.stack([b[k] for b in shrunk]).astype(SHRUNK_DTYPES[k],
+                                                                        copy=False))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        out[k] = host.to(device, non_blocking=device.type == "cuda")
     return out

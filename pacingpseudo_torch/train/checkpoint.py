@@ -18,7 +18,10 @@ A checkpoint is a directory of two files:
   ``pacingpseudo_tpu/tools/torch_import.py::load_torch_checkpoint`` and the
   reference read it as it stands;
 * ``train.pth``: the optimizer's state_dict (Adam's moments and step
-  counts) and the train state's ``step``.
+  counts) and the train state's ``step``.  It is always written in the
+  eager optimizer's layout: Adam's step counts as CPU scalars and
+  ``capturable`` False, also when a CUDA graph trained with a capturable
+  Adam (``optim.make_capturable``), so any state restores it.
 
 Together they are the full train state, so a run **resumes** exactly.  A
 checkpoint is written into a temporary directory beside its path and
@@ -62,8 +65,8 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     os.makedirs(tmp)
     model_sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     torch.save(model_sd, os.path.join(tmp, MODEL_FILE))
-    torch.save({"optimizer": state.optimizer.state_dict(), "step": int(state.step)},
-               os.path.join(tmp, TRAIN_FILE))
+    torch.save({"optimizer": _eager_layout(state.optimizer.state_dict()),
+                "step": int(state.step)}, os.path.join(tmp, TRAIN_FILE))
     old = None
     if os.path.exists(path):
         old = f"{path}.old-{os.getpid()}"
@@ -71,6 +74,16 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     os.replace(tmp, path)
     if old is not None:
         shutil.rmtree(old)
+
+
+def _eager_layout(opt_sd: Dict) -> Dict:
+    """An optimizer state_dict with Adam's step counts on the CPU and
+    ``capturable`` off (new dicts: the live optimizer is not touched)."""
+    state = {i: {k: v.detach().cpu() if k == "step" else v for k, v in s.items()}
+             for i, s in opt_sd["state"].items()}
+    groups = [dict(g, capturable=False) if "capturable" in g else g
+              for g in opt_sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
 
 
 def _model_state(path: str) -> Dict[str, torch.Tensor]:
@@ -83,9 +96,10 @@ def _model_state(path: str) -> Dict[str, torch.Tensor]:
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint of :func:`save_checkpoint` into ``state`` (a state
     of the same configuration, on any device) and return it."""
-    device = next(state.model.parameters()).device
     state.model.load_state_dict(_model_state(path), strict=True)
-    train = torch.load(os.path.join(path, TRAIN_FILE), map_location=device)
+    # Read on the CPU: the optimizer moves the moments to their parameters'
+    # device and keeps an eager Adam's step counts on the CPU.
+    train = torch.load(os.path.join(path, TRAIN_FILE), map_location="cpu")
     state.optimizer.load_state_dict(train["optimizer"])
     state.step = int(train["step"])
     return state

@@ -19,23 +19,40 @@ What keeps a resumed run on the uninterrupted run's path:
   the JAX loop's resident path draws it (``loop.py:536-539``);
 * the augmentation of update ``k`` draws from a ``torch.Generator`` on the
   device that is **reseeded before every step** from ``(seed + 1, k)``
-  (:func:`step_seed`), the counterpart of JAX's ``fold_in(rng,
+  (``step.step_seed``), the counterpart of JAX's ``fold_in(rng,
   state.step)``; the device's default generator, which dropout draws from,
   is reseeded from ``(seed + 1, k, 1)``.  So no generator state needs to go
-  into a checkpoint;
+  into a checkpoint, and every dispatch path draws the same;
 * the checkpoint holds the model (BN statistics and bank included), the
   optimizer and ``step``; ``valdice.npz``, written every epoch, gives back
   the history and the best-epoch tracker.
 
+How a step reaches the device (JAX's ``loop.py:407-479,531-582``):
+
+* ``device_resident_data``: ``on``, or ``auto`` with a pool under 6 GiB
+  (``data/resident.py``), stages every training slice on the device once,
+  rounded to float16 image and uint8 label/scribble; a dispatch then sends
+  an int32 index block and the step gathers its batch on the device.
+  ``off`` streams the loader's batches, rounded the same way
+  (``npz_dataset.shrink_raw``) and stacked into one upload a dispatch;
+* ``steps_per_dispatch``: a dispatch runs ``chunk = min(steps_per_dispatch,
+  steps_per_epoch)`` updates, the epoch's last one ``steps_per_epoch %
+  chunk``.  On a card with ``chunk > 1`` each update is a replay of the
+  step captured as a CUDA graph (``train/graph.py``); with ``chunk == 1``
+  and on the CPU the eager step runs.  Every setting walks the same
+  batches with the same draws: on the CPU the final state and the metric
+  lines are equal bit for bit.
+
 Metrics are accumulated on the device and read once an epoch.  Validation
 walks a copy of the validation pool staged on the device once
 (:class:`ValPool`), in index blocks with a validity mask for the last
-partial batch, and reads five small tensors an epoch.
+partial batch, and reads five small tensors an epoch; its pool is rounded
+like the training pool when the run is resident, and float32 when it
+streams, as JAX's streaming validation is.  ``profile_dir``: a
+``torch.profiler`` trace of epoch ``start + 1`` (with its validation),
+as JAX traces it.
 
-Not ported (``ROADMAP.md``): the mesh / spatial / multi-device branch, the
-chunked and resident *training* paths (``steps_per_dispatch``,
-``device_resident_data`` parse and are ignored) and ``profile_dir``'s
-profiler trace.
+Not ported (``ROADMAP.md``): the mesh / spatial / multi-device branch.
 """
 from __future__ import annotations
 
@@ -54,15 +71,21 @@ import torch
 from pacingpseudo_torch.aug.engine import eval_preprocess_batch, make_train_augment_fn
 from pacingpseudo_torch.aug.presets import base_params_for, strong_params_for
 from pacingpseudo_torch.config import ExperimentConfig
-from pacingpseudo_torch.data.npz_dataset import BatchLoader, SliceDataset, raw_batch_to_device
+from pacingpseudo_torch.data.npz_dataset import (BatchLoader, SliceDataset,
+                                                 raw_batch_to_device, stack_to_device)
+from pacingpseudo_torch.data.resident import (gather, pool_bytes, stage_pool,
+                                              stage_train_pool, use_resident)
 from pacingpseudo_torch.data.splits import read_fold_split
 from pacingpseudo_torch.evals.dice import dice_per_class
 from pacingpseudo_torch.losses import partial_cross_entropy_loss
 from pacingpseudo_torch.train import checkpoint as ckpt_lib
+from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.state import TrainState, create_train_state
-from pacingpseudo_torch.train.step import (eval_logits, make_pacing_eval_step,
-                                           make_pacing_train_step,
-                                           make_upper_bound_train_step)
+from pacingpseudo_torch.train.step import (eval_logits, make_chunked_train_step,
+                                           make_pacing_eval_step, make_pacing_train_step,
+                                           make_resident_chunked_train_step,
+                                           make_upper_bound_train_step, step_seed,
+                                           uses_graph)
 from pacingpseudo_torch.utils import AvgMeter
 
 
@@ -187,22 +210,6 @@ def _pad_batch(raw: Dict[str, np.ndarray], to: int):
     return out, n
 
 
-def step_seed(seed: int, step: int, stream: int = 0) -> int:
-    """The 63-bit seed of update ``step``'s draws: a pure function of
-    ``(seed + 1, step, stream)`` (stream 0: the augmentation, 1: dropout)."""
-    words = np.random.SeedSequence([seed + 1, step, stream]).generate_state(2, np.uint32)
-    return (int(words[0]) << 31) ^ int(words[1])
-
-
-def seed_step(generator: torch.Generator, device: torch.device, seed: int, step: int):
-    """Reseed ``generator`` (the augmentation's) and the device's default
-    generator (dropout's) for update ``step``."""
-    generator.manual_seed(step_seed(seed, step))
-    default = (torch.cuda.default_generators[device.index]
-               if device.type == "cuda" else torch.default_generator)
-    default.manual_seed(step_seed(seed, step, 1))
-
-
 class ValState:
     """Host-side per-epoch validation aggregation (AvgMeters skipping NaN,
     train_chaos.py:372-391): the batch-by-batch path the device
@@ -229,20 +236,21 @@ class ValState:
 @dataclasses.dataclass
 class ValPool:
     """The validation slices on the device, in the loader's order: raw
-    canvases ``image/label/scribble`` (V, S, S) float32 and ``size`` (V, 2),
-    with ``idx_blocks`` (B, N) of slice indices (the last block padded by
-    repeating the last slice, as ``_pad_batch`` does) and ``valid_blocks``
-    (B, N) masking the padding."""
+    canvases ``image/label/scribble`` (V, S, S) (float32, or float16/uint8
+    when rounded) and ``size`` (V, 2), with ``idx_blocks`` (B, N) of slice
+    indices (the last block padded by repeating the last slice, as
+    ``_pad_batch`` does) and ``valid_blocks`` (B, N) masking the padding."""
     raw: Dict[str, torch.Tensor]
     idx_blocks: torch.Tensor
     valid_blocks: torch.Tensor
 
 
-def stage_val_pool(val_ds: SliceDataset, batch_size: int, device) -> ValPool:
-    """Load every validation slice once and stage it on ``device``."""
-    loader = BatchLoader(val_ds, batch_size=256, shuffle=False, drop_last=False)
-    parts = [raw_batch_to_device(b, device) for b in loader]
-    raw = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+def stage_val_pool(val_ds: SliceDataset, batch_size: int, device,
+                   shrink: bool = False) -> ValPool:
+    """Load every validation slice once and stage it on ``device``; with
+    ``shrink`` rounded as the training batches are (``shrink_raw``), as the
+    JAX loop stages its resident validation pool (loop.py:439-445)."""
+    raw = stage_pool(val_ds, device, shrink)
     n_val = len(val_ds)
     n_blocks = -(-n_val // batch_size)
     idx = np.arange(n_blocks * batch_size)
@@ -374,6 +382,10 @@ def _train_driver(config: ExperimentConfig, data_root: str,
     logging.info("train slices=%d val slices=%d steps/epoch=%d canvas=%d device=%s",
                  len(train_ds), len(val_ds), steps_per_epoch, train_ds.canvas_size,
                  device)
+    if steps_per_epoch == 0:
+        raise RuntimeError(
+            f"empty train epoch: loader yielded no full batch "
+            f"(train slices < batch_size {config.batch_size}?)")
 
     # ---- model / state / steps
     base_params, strong_params = _augment_params(config)
@@ -387,13 +399,35 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             start_epoch = state.step // steps_per_epoch
             logging.info("resumed from %s at epoch %d", latest, start_epoch)
 
+    # Dispatch: `chunk` updates a call; the resident pool or the loader's
+    # stream (JAX's loop.py:407-437).
+    chunk = min(max(1, int(config.steps_per_dispatch)), steps_per_epoch)
+    resident = use_resident(config.device_resident_data, len(train_ds),
+                            train_ds.canvas_size)
+    train_pool = None
+    if resident:
+        logging.info("staging %d slices (%.2f GB) in device memory", len(train_ds),
+                     pool_bytes(len(train_ds), train_ds.canvas_size) / 2 ** 30)
+        train_pool = stage_train_pool(train_ds, device)
+    logging.info("steps per dispatch %d (%s), training data %s", chunk,
+                 "CUDA graph replays" if uses_graph(device, chunk) else "eager steps",
+                 "resident on the device" if resident else "streamed")
+
+    # One StepGraph for both steps: it holds the graph of the step that runs.
+    graph = StepGraph()
     make_train = make_upper_bound_train_step if upper_bound else make_pacing_train_step
-    train_step = make_train(config, steps_per_epoch, augment_fn=augment_fn)
+
+    def make_chunked(step):
+        if resident:
+            return make_resident_chunked_train_step(step, chunk, train_pool, graph)
+        return make_chunked_train_step(step, chunk, graph)
+
+    train_step = make_chunked(make_train(config, steps_per_epoch, augment_fn=augment_fn))
     train_step_frozen = None
     if config.ref_quirk_bn_eval_after_first_epoch:
-        train_step_frozen = make_train(config, steps_per_epoch, module_train=False,
-                                       augment_fn=augment_fn)
-    val_pool = stage_val_pool(val_ds, config.batch_size, device)
+        train_step_frozen = make_chunked(
+            make_train(config, steps_per_epoch, module_train=False, augment_fn=augment_fn))
+    val_pool = stage_val_pool(val_ds, config.batch_size, device, shrink=resident)
     resident_eval = make_resident_eval_fn(config)
     generator = torch.Generator(device=device)
 
@@ -414,7 +448,12 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             best_epoch = int(hist.argmax())
             best_avg = float(hist.max())
 
+    profiler = None
     for epoch in range(start_epoch, config.epoch):
+        if config.profile_dir and epoch == start_epoch + 1:
+            # one trace, after the first epoch's warm-up (JAX's
+            # loop.py:510-519)
+            profiler = _start_profiler(device)
         tic = time.time()
         step_fn = train_step
         if train_step_frozen is not None and epoch >= 1:
@@ -429,27 +468,35 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         np.random.RandomState([config.seed + 2, epoch]).shuffle(order)
         blocks = order[:steps_per_epoch * config.batch_size].reshape(
             steps_per_epoch, config.batch_size)
-        acc, lr_sum, n_steps, last_raw = None, 0.0, 0, None
-        for raw in train_loader.batches(blocks):
-            raw.pop("uid", None)
-            last_raw = raw_batch_to_device(raw, device)
-            seed_step(generator, device, config.seed, state.step)
-            metrics = step_fn(state, last_raw, generator)
-            lr_sum += metrics.pop("lr")
-            acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
-            n_steps += 1
-        if n_steps == 0:
-            raise RuntimeError(
-                f"empty train epoch: loader yielded no full batch "
-                f"(train slices < batch_size {config.batch_size}?)")
+        # `last`: the epoch's last batch, for the figure panels (an index
+        # block into the pool, or the loader's host batch)
+        acc, last = None, None
+        if resident:
+            for pos in range(0, steps_per_epoch, chunk):
+                idx = torch.from_numpy(blocks[pos:pos + chunk].astype(np.int32)).to(device)
+                acc = step_fn(state, idx, generator, config.seed, acc)
+            last = idx[-1]
+        else:
+            pending = []
+            for raw in train_loader.batches(blocks):
+                raw.pop("uid", None)
+                pending.append(raw)
+                if len(pending) == chunk:
+                    acc = step_fn(state, stack_to_device(pending, device), generator,
+                                  config.seed, acc)
+                    last, pending = pending[-1], []
+            if pending:
+                acc = step_fn(state, stack_to_device(pending, device), generator,
+                              config.seed, acc)
+                last = pending[-1]
         # Read the accumulated device metrics BEFORE stopping the epoch
         # timer: launches are asynchronous and only this host read waits.
-        names = list(acc)
+        names = [k for k in acc if k != "lr"]
         values = torch.stack([acc[k].float() for k in names]).cpu().tolist()
-        means = {"lr": lr_sum / n_steps,
-                 **{k: v / n_steps for k, v in zip(names, values)}}
+        means = {"lr": acc["lr"] / steps_per_epoch,
+                 **{k: v / steps_per_epoch for k, v in zip(names, values)}}
         toc = time.time()
-        slices_per_sec = n_steps * config.batch_size / max(toc - tic, 1e-9)
+        slices_per_sec = steps_per_epoch * config.batch_size / max(toc - tic, 1e-9)
         logging.info(
             "epoch: %03d, lr: %.6f, %s, %.2f s/epoch, %.2f slices/s",
             epoch, means["lr"],
@@ -476,9 +523,11 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             # (train_chaos.py:320-360); the augmentation is drawn again
             # with an epoch-keyed seed and one frozen-BN forward.  The
             # upper-bound session draws none, as in JAX (loop.py:487).
-            if config.tb_figures and last_raw is not None and not upper_bound:
+            if config.tb_figures and not upper_bound:
+                fig_raw = (gather(train_pool, last) if resident else
+                           raw_batch_to_device(last, device, shrink=True))
                 generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
-                fig_batch = augment_fn(last_raw, generator)
+                fig_batch = augment_fn(fig_raw, generator)
                 fig_out = _figure_forward(state, fig_batch)
                 _tb_train_figures(
                     tb, {k: v.float().cpu().numpy() for k, v in fig_batch.items()},
@@ -506,6 +555,9 @@ def _train_driver(config: ExperimentConfig, data_root: str,
                 tb.add_scalar(f"DSC/{n_.replace(' ', '_')}", d, epoch)
             tb.add_scalar("DSC/All", avg_all, epoch)
             tb.add_scalar("DSC/Best", max(best_avg, avg_all), epoch)
+        if profiler is not None:
+            _stop_profiler(profiler, config.profile_dir, epoch)
+            profiler = None
 
         # ---- checkpoints (fixed interval precedence + final epoch,
         # reference: train_chaos.py:405-413)
@@ -521,11 +573,36 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             logging.info("stop_after_epoch=%d: exiting", stop_after_epoch)
             break
 
+    if graph.captures:
+        logging.info("CUDA graph: %d captures, %d replays", graph.captures, graph.replays)
+        # the last replay's gradients live in the graph's pool
+        state.optimizer.zero_grad(set_to_none=True)
+        graph.reset()
     logging.info("The best at epoch: %d, All: %.4f", best_epoch, best_avg)
     np.savez(os.path.join(run_dir, "valdice"), valdice=valdice)
     if tb:
         tb.close()
     return run_dir, state
+
+
+def _start_profiler(device: torch.device):
+    """A running ``torch.profiler`` session: the host, and the card's
+    kernels when ``device`` is one."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, epoch: int) -> None:
+    """End the session and write its Chrome trace into ``profile_dir``."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{epoch:03d}.json")
+    profiler.export_chrome_trace(path)
+    logging.info("profiler trace written to %s", path)
 
 
 def _save(path: str, state: TrainState) -> None:

@@ -37,3 +37,20 @@ def lr_at(config, step: int, steps_per_epoch: int) -> float:
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Let ``optimizer.step()`` be captured in a CUDA graph: Adam's groups
+    get ``capturable=True`` and their ``step`` counts move to the
+    parameters' device (as float32 tensors), so the bias correction is
+    computed on the device at each replay.  SGD reads nothing from the
+    host and is left as it is.  :func:`~pacingpseudo_torch.train.
+    checkpoint.save_checkpoint` writes such a state in the eager layout."""
+    for group in optimizer.param_groups:
+        if "capturable" not in group or group["capturable"]:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(device=p.device, dtype=torch.float32)

@@ -18,11 +18,19 @@ Augmented batches are NCHW dicts: ``image`` and ``image_strong`` ``(N, 1, H, W)`
 Metrics are the **weighted** loss values, as the reference meters record
 them (train_chaos.py:274-310), returned as device tensors: reading them is
 the caller's sync.  The step itself never syncs with the host.
+
+Chunked dispatch (``step.py:235-305`` of the JAX package):
+:func:`make_chunked_train_step` and :func:`make_resident_chunked_train_step`
+run up to ``chunk`` updates a call, on stacked raw batches or on index
+blocks into a resident pool, and add their metrics on the device.  On a
+card with ``chunk > 1`` each update is a replay of one captured CUDA graph
+of the step (``train/graph.py``); elsewhere the eager step runs.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,8 +45,10 @@ from pacingpseudo_torch.losses import (
     partial_cross_entropy_loss,
     soft_label_cross_entropy_loss,
 )
+from pacingpseudo_torch.data.resident import gather
 from pacingpseudo_torch.models.aux_path import memory_update
 from pacingpseudo_torch.ops.fused_loss import fused_pacing_losses
+from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.optim import lr_at, set_lr
 from pacingpseudo_torch.train.schedules import gaussian_ramp_up
 from pacingpseudo_torch.train.state import TrainState
@@ -172,17 +182,47 @@ def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
     return total, metrics, new_bank
 
 
+class StepScalars(NamedTuple):
+    """The host values an update reads: its epoch, from which the loss
+    ramps and the bank's momentum follow, and its learning rate.  Both are
+    fixed for an epoch, so one captured step serves the whole epoch."""
+    epoch: float
+    lr: float
+
+
+def step_scalars(config, step: int, steps_per_epoch: int) -> StepScalars:
+    """The :class:`StepScalars` of update number ``step`` (0-based)."""
+    return StepScalars(float(step // steps_per_epoch), lr_at(config, step, steps_per_epoch))
+
+
+def step_seed(seed: int, step: int, stream: int = 0) -> int:
+    """The 63-bit seed of update ``step``'s draws: a pure function of
+    ``(seed + 1, step, stream)`` (stream 0: the augmentation, 1: dropout)."""
+    words = np.random.SeedSequence([seed + 1, step, stream]).generate_state(2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
+def seed_step(generator: torch.Generator, device: torch.device, seed: int, step: int):
+    """Reseed ``generator`` (the augmentation's) and the device's default
+    generator (dropout's) for update ``step``."""
+    generator.manual_seed(step_seed(seed, step))
+    default = (torch.cuda.default_generators[device.index]
+               if device.type == "cuda" else torch.default_generator)
+    default.manual_seed(step_seed(seed, step, 1))
+
+
 def _make_train_step(config, steps_per_epoch: int, losses: Callable,
                      module_train: bool, augment_fn: Optional[Callable]):
     """The step skeleton both sessions share: augment, forward and losses
     (``losses(config, model, batch, epoch) -> (total, metrics, new_bank)``),
     backward, the optimizer update with the per-epoch learning rate, the
-    bank's EMA when ``new_bank`` is not None."""
+    bank's EMA when ``new_bank`` is not None.  The step's ``scalars(step)``
+    gives the :class:`StepScalars` of an update."""
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
         model, opt = state.model, state.optimizer
-        epoch = float(state.step // steps_per_epoch)
+        epoch, lr = step_scalars(config, state.step, steps_per_epoch)
         if augment_fn is not None:
             if generator is None:
                 raise ValueError("a step with an augment_fn needs a generator")
@@ -192,7 +232,6 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
         opt.zero_grad(set_to_none=True)
         total, metrics, new_bank = losses(config, model, batch, epoch)
         total.backward()
-        lr = lr_at(config, state.step, steps_per_epoch)
         set_lr(opt, lr)
         opt.step()
         if new_bank is not None:
@@ -202,7 +241,95 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
         metrics["lr"] = lr
         return metrics
 
+    train_step.scalars = lambda step: step_scalars(config, step, steps_per_epoch)
     return train_step
+
+
+def _accumulate(acc, metrics):
+    """``acc + metrics`` key by key, in update order (``acc`` None: a copy of
+    ``metrics``, which a graph replay would overwrite)."""
+    if acc is None:
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in metrics.items()}
+    return {k: acc[k] + v for k, v in metrics.items()}
+
+
+def uses_graph(device, chunk: int) -> bool:
+    """Whether a chunked step replays a CUDA graph: on a card, ``chunk > 1``.
+    Elsewhere, and with ``chunk == 1`` (JAX's plain single step), the eager
+    step runs."""
+    return torch.device(device).type == "cuda" and chunk > 1
+
+
+def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGraph]):
+    """``run(state, xs, generator, seed, acc) -> acc`` over the ``K <=
+    chunk`` leading entries of ``xs`` (a dict of stacked device tensors):
+    update ``k`` reseeds the generators from ``(seed, state.step)``
+    (:func:`seed_step`) and steps on ``to_batch({key: xs[key][k]})``, as
+    a replay of ``graph`` (a new one when None) where :func:`uses_graph`."""
+    graph = StepGraph() if graph is None else graph
+
+    def run(state, xs: Dict[str, torch.Tensor], generator: torch.Generator, seed: int,
+            acc: Optional[Dict] = None):
+        first = next(iter(xs.values()))
+        k_steps, device = first.shape[0], first.device
+        if not 1 <= k_steps <= chunk:
+            raise ValueError(f"a chunk of {k_steps} steps; this step takes 1 to {chunk}")
+
+        def reseed(n):
+            seed_step(generator, device, seed, n)
+
+        graphed = uses_graph(device, chunk)
+        for k in range(k_steps):
+            inputs = {key: v[k] for key, v in xs.items()}
+            if graphed:
+                metrics = graph.run(step, state, inputs, to_batch, generator, reseed)
+            else:
+                reseed(state.step)
+                metrics = step(state, to_batch(inputs), generator)
+            acc = _accumulate(acc, metrics)
+        return acc
+
+    return run
+
+
+def make_chunked_train_step(step: Callable, chunk: int, graph: Optional[StepGraph] = None):
+    """Up to ``chunk`` train steps a call on stacked raw batches: the
+    counterpart of JAX's ``make_chunked_train_step`` (``step.py:235-270``).
+
+    Returns ``(state, raw_stack, generator, seed, acc=None) -> acc``:
+    ``raw_stack`` holds ``K <= chunk`` raw batches on a leading axis
+    (``npz_dataset.stack_to_device``), update ``k`` draws from
+    ``generator`` and the device's default generator reseeded from
+    ``(seed, state.step)``, and ``acc`` comes back with the updates'
+    metrics added in order (``lr`` as a host float).  On a card with
+    ``chunk > 1`` each update replays the step's CUDA graph (``graph``, a
+    :class:`~pacingpseudo_torch.train.graph.StepGraph` that other chunked
+    steps may share; a new one when None); otherwise the eager step runs.
+    """
+    return _chunk_runner(step, chunk, lambda raw: raw, graph)
+
+
+def make_resident_chunked_train_step(step: Callable, chunk: int,
+                                     pool: Dict[str, torch.Tensor],
+                                     graph: Optional[StepGraph] = None):
+    """Up to ``chunk`` train steps a call on the resident ``pool``: the
+    counterpart of JAX's ``make_resident_chunked_train_step``
+    (``step.py:273-305``) on one device.  The pool is bound here, where
+    JAX's step takes it with each call: a captured step gathers from the
+    tensors it was captured with.
+
+    Returns ``(state, idx_block, generator, seed, acc=None) -> acc``:
+    ``idx_block`` (K, N) int32 on the pool's device, ``K <= chunk``; update
+    ``k`` steps on ``data.resident.gather(pool, idx_block[k])``.  The rest
+    as :func:`make_chunked_train_step`; in a graph the gather is captured
+    too, so a replay reads only the index block."""
+    run = _chunk_runner(step, chunk, lambda x: gather(pool, x["idx"]), graph)
+
+    def chunked(state, idx_block, generator, seed, acc=None):
+        return run(state, {"idx": idx_block}, generator, seed, acc)
+
+    return chunked
 
 
 def make_pacing_train_step(config, steps_per_epoch: int,

@@ -48,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
                    "pacingpseudo_torch.evals.hd", "pacingpseudo_torch.cli.inference",
                    "pacingpseudo_torch.tools.prepare_data", "pacingpseudo_torch.tools.medio",
                    "pacingpseudo_torch.cli.prepare_data",
-                   "pacingpseudo_torch.cli.scribble_tools"):
+                   "pacingpseudo_torch.cli.scribble_tools",
+                   "pacingpseudo_torch.data.resident", "pacingpseudo_torch.train.graph",
+                   "pacingpseudo_torch.cli.sweep"):
         assert module in loaded
     assert [m for m in loaded if _is_forbidden(m)] == []
 
