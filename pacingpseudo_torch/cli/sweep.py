@@ -10,8 +10,9 @@ README tables):
         --do_loss_ent --do_decoder_consistency --do_aux_path --do_memory
 
 Every flag of ``cli.train`` plus ``--folds``, ``--sweep_out`` and
-``--patient_regex``; ``--gpu`` names the device (``0`` -> ``cuda:0``, the
-default, or ``cpu``).  Each finished fold leaves ``fold{N}.json``, stamped
+``--patient_regex``; ``--gpu`` names the devices as in ``cli.train``
+(``0`` -> ``cuda:0``, the default; ``0,1`` trains each fold on two cards;
+``cpu``), and inference runs on the first of them.  Each finished fold leaves ``fold{N}.json``, stamped
 with :func:`_config_hash`, and a rerun with the same hash reads it instead
 of training again.  Writes ``sweep_summary.json`` and a README-style
 ``sweep_table.md`` with per-fold and overall DSC / HD95.  The JAX
@@ -65,13 +66,13 @@ def build_parser():
 
 
 def main(argv=None):
-    from pacingpseudo_torch.cli.train import config_from_args, device_from_gpu
+    from pacingpseudo_torch.cli.train import config_from_args, devices_from_gpu
     from pacingpseudo_torch.config import DATASETS
     from pacingpseudo_torch.evals.infer import run_inference
     from pacingpseudo_torch.train.loop import train_driver
 
     args = build_parser().parse_args(argv)
-    device = device_from_gpu(args.gpu)
+    devices = devices_from_gpu(args.gpu)
     # The pool's definition is part of the fold-cache key: a rerun that
     # only summarises must pass the same synthetic flags.
     cfg_hash = _config_hash(args, config_from_args)
@@ -115,7 +116,7 @@ def main(argv=None):
         config = config_from_args(args).validate()
         run_dir = train_driver(config, args.data_root,
                                max_steps_per_epoch=args.max_steps_per_epoch or None,
-                               device=device)
+                               device=devices)
         infer_dir = os.path.join(run_dir, "inference")
         os.makedirs(infer_dir, exist_ok=True)
         res = run_inference(
@@ -128,7 +129,7 @@ def main(argv=None):
                 is_stride_conv=args.is_stride_conv,
                 is_trans_conv=args.is_trans_conv),
             compute_dtype=args.compute_dtype,
-            patient_regex=args.patient_regex, device=device)
+            patient_regex=args.patient_regex, device=devices[0])
         results[fold] = {"_config_hash": cfg_hash,
                          "dice": res["dice"], "hd95": res["hd95"],
                          "dice_per_patient": res["dice_per_patient"],

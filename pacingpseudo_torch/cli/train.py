@@ -6,17 +6,23 @@ The port of ``pacingpseudo_tpu/cli/train.py``:
         --do_loss_ent --do_decoder_consistency --do_aux_path --do_memory
 
 Every flag of the JAX package's parser, with its name and default
-(reference train_chaos.py:23-179, upper_bound_chaos.py:81).  The device
-is the reference's own ``--gpu``: a CUDA index (``0`` -> ``cuda:0``, the
-default) or ``cpu``.  There is no fallback: without a CUDA device, ``--gpu
-0`` fails.  ``--steps_per_dispatch`` (updates a dispatch: on a card with
+(reference train_chaos.py:23-179, upper_bound_chaos.py:81).  The devices
+are the reference's own ``--gpu``: CUDA indices (``0`` -> ``cuda:0``, the
+default; ``0,1`` -> ``cuda:0`` and ``cuda:1``, as the reference's
+``--gpu`` set ``CUDA_VISIBLE_DEVICES``) or ``cpu``.  There is no fallback:
+a listed card that does not exist fails.  ``--num_devices`` takes the
+first k of them (0: all; on the CPU, k gloo ranks) and ``--spatial_shards``
+is honoured as in the JAX package or refused: several devices train as
+one data mesh (``train/loop.py``), and a split that needs height sharding
+(``--spatial_shards`` above 1, or an AUTO split with a space axis) exits
+with a message.  ``--steps_per_dispatch (updates a dispatch: on a card with
 more than 1, replays of the step captured as a CUDA graph) and
 ``--device_resident_data`` (``auto``/``on``/``off``: the training pool on
 the device) choose how the loop feeds the step (``train/loop.py``), and
 ``--profile_dir`` gets a ``torch.profiler`` trace of the second epoch.
-The flags that only steer the JAX package's TPU execution
-(``--s2d_hires``, ``--spatial_shards``, ``--num_devices``) parse and are
-ignored, and so are the TPU preflight and the XLA compile cache.
+``--s2d_hires``, which only steers the JAX package's TPU execution,
+parses and is ignored, and so are the TPU preflight and the XLA compile
+cache.
 ``--session Upperbound`` trains the fully supervised bare model
 (upper_bound_chaos.py), with ``--loss_dice``.
 """
@@ -27,6 +33,7 @@ import logging
 import os
 import random
 import traceback
+from typing import List
 
 import numpy as np
 import torch
@@ -51,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="pacingpseudo_torch trainer")
     # Session (train_chaos.py:26-41)
     p.add_argument("--gpu", type=str, default="0",
-                   help="the device: a CUDA index ('0' -> cuda:0) or 'cpu'")
+                   help="the devices: CUDA indices ('0' -> cuda:0, '0,1' -> "
+                        "cuda:0 and cuda:1) or 'cpu'")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--dataset", type=str, default="chaos",
                    choices=["chaos", "chaost1", "chaost2", "acdc", "lvsc"])
@@ -134,8 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
     # Upper bound (upper_bound_chaos.py:81)
     p.add_argument("--loss_dice", type=_str2bool, nargs="?",
                    const=True, default=True)
-    # Extensions of the JAX package; --s2d_hires, --spatial_shards and
-    # --num_devices parse and are ignored by the port (config.py)
+    # Extensions of the JAX package; --s2d_hires parses and is ignored by the
+    # port (config.py)
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
@@ -152,7 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "actual training dynamics: float32 compute, unfused "
                         "streams (per-stream BN stats), memory_update_mode="
                         "first, and the BN-eval-after-first-epoch quirk")
-    p.add_argument("--num_devices", type=int, default=0)
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="the first k devices of --gpu (0 = all; on the CPU, k ranks)")
     p.add_argument("--spatial_shards", type=int, default=0,
                    help="shard activation height over a 'space' mesh axis "
                         "(devices split as data x space); 0 = auto-factor "
@@ -295,21 +304,32 @@ def config_from_args(args) -> ExperimentConfig:
 
 
 def device_from_gpu(gpu: str) -> torch.device:
-    """``--gpu``: ``cpu``, or one CUDA index (``"0"`` -> ``cuda:0``)."""
+    """``--gpu`` of a one-device command (inference): ``cpu``, or one CUDA
+    index (``"0"`` -> ``cuda:0``)."""
+    devices = devices_from_gpu(gpu)
+    if len(devices) != 1:
+        raise SystemExit(f"--gpu takes one CUDA index or 'cpu' here, got {gpu!r}")
+    return devices[0]
+
+
+def devices_from_gpu(gpu: str) -> List[torch.device]:
+    """``--gpu``: ``cpu``, or a comma list of CUDA indices (``"0,1"`` ->
+    ``cuda:0``, ``cuda:1``).  Whether the cards exist is checked where the
+    run starts (``train.loop.resolve_devices``)."""
     if gpu.strip().lower() == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     try:
-        return torch.device("cuda", int(gpu))
+        return [torch.device("cuda", int(i)) for i in gpu.split(",")]
     except ValueError:
-        raise SystemExit(f"--gpu takes one CUDA index or 'cpu', got {gpu!r} "
-                         "(training on several cards is not ported)") from None
+        raise SystemExit(f"--gpu takes CUDA indices ('0', '0,1') or 'cpu', "
+                         f"got {gpu!r}") from None
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     random.seed(args.seed)
     np.random.seed(args.seed)
-    device = device_from_gpu(args.gpu)
+    devices = devices_from_gpu(args.gpu)
     config = config_from_args(args).validate()
 
     if args.synthetic_data:
@@ -341,7 +361,7 @@ def main(argv=None):
             return train_driver(
                 config, args.data_root, run_dir=run_dir,
                 max_steps_per_epoch=args.max_steps_per_epoch or None,
-                device=device)
+                device=devices)
         except KeyboardInterrupt:
             raise
         except Exception:

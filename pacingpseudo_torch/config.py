@@ -5,9 +5,11 @@ Field for field and default for default the same as
 the same run in the other.  The port keeps its own copy instead of
 importing it: nothing in ``pacingpseudo_torch`` imports the JAX package.
 
-Knobs that only steer the JAX package's TPU execution (``s2d_hires``,
-``spatial_shards``, ``num_devices``) are kept for argv compatibility and
-are not read by the port.  ``steps_per_dispatch`` and
+``s2d_hires``, which only steers the JAX package's TPU execution, is kept
+for argv compatibility and is not read by the port.  ``num_devices`` and
+``spatial_shards`` split the devices as in the JAX package
+(``train/loop.py``): a data mesh runs, a split that needs height sharding
+is refused.  ``steps_per_dispatch`` and
 ``device_resident_data`` steer the port's loop too (``train/loop.py``).  ``use_pallas_loss`` keeps its name and selects the port's fused
 CUDA loss kernel: ``auto`` takes it when the logits lie on a CUDA device.
 """

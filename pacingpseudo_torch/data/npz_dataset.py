@@ -7,8 +7,11 @@ processes that also run the whole augmentation chain on the CPU
 (reference: chaos_dataset.py:58-105, train_chaos.py:237-238).  Here the
 host does only the cheap part -- file I/O, padding to a static canvas,
 batching, prefetch -- and all augmentation runs on the device
-(aug/engine.py).  The JAX package's C++ loader (``data/native``) is not
-ported: :class:`BatchLoader` has no ``native`` branch.
+(aug/engine.py).  :class:`BatchLoader` reads a batch through the C++
+loader (``data/native``: zip walk, inflate, npy parse and canvas padding
+in a ``std::thread`` pool, without the GIL) where it builds, as the JAX
+package's default loader does, else through numpy; ``route`` says which.
+Both fill the same float32 canvases byte for byte.
 
 Batches are "raw canvas" dicts:
     image/label/scribble: (N, S, S) float32 -- padded to the static canvas
@@ -22,6 +25,8 @@ uint8 label/scribble), as the JAX loop uploads them.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
+import logging
 import queue
 import threading
 from typing import Dict, Iterator, Optional, Sequence
@@ -99,11 +104,17 @@ class BatchLoader:
     ``drop_last=True`` + shuffling for training (train_chaos.py:237);
     ordered, keep-last for validation (:238).  ``prefetch`` batches are
     loaded ahead by a thread pool so device steps do not wait on file I/O.
+
+    ``native`` (the default, as in the JAX package) reads each batch with
+    one call of the C++ loader when its library builds; ``route`` is then
+    ``"native"``, else ``"numpy"``.  A loader that asked for the native
+    route and cannot have it logs the compiler's message once a process.
     """
 
     def __init__(self, dataset: SliceDataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, num_threads: int = 8, prefetch: int = 2):
+                 seed: int = 0, num_threads: int = 8, prefetch: int = 2,
+                 native: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -112,6 +123,7 @@ class BatchLoader:
         self.rng = np.random.RandomState(seed)
         self.num_threads = num_threads
         self.prefetch = prefetch
+        self.route = "native" if native and _native_route() else "numpy"
 
     def __len__(self):
         n = len(self.dataset)
@@ -125,6 +137,14 @@ class BatchLoader:
         self.rng = np.random.RandomState([self.seed, epoch])
 
     def _collate(self, idxs: Sequence[int]) -> Dict[str, np.ndarray]:
+        if self.route == "native":
+            from pacingpseudo_torch.data.native.loader import load_batch_native, uids_of
+            paths = [self.dataset.file_ls[i] for i in idxs]
+            batch = load_batch_native(paths, self.dataset.canvas_size,
+                                      float(self.dataset.ignored_index),
+                                      num_threads=max(1, self.num_threads))
+            batch["uid"] = uids_of(paths)
+            return batch
         samples = [self.dataset.load(i) for i in idxs]
         batch = {k: np.stack([s[k] for s in samples]) for k in RAW_KEYS}
         batch["uid"] = [s["uid"] for s in samples]
@@ -188,6 +208,18 @@ class BatchLoader:
                 yield item
         finally:
             stop.set()
+
+
+@functools.lru_cache(maxsize=None)
+def _native_route() -> bool:
+    """Whether the C++ loader's library is built and loads; the first
+    time it is not, one log line with the compiler's message."""
+    from pacingpseudo_torch.data.native.loader import build_error, native_available
+    if native_available():
+        return True
+    logging.warning("native npz loader unavailable, batches take the numpy route: %s",
+                    " ".join(build_error().split()))
+    return False
 
 
 def shrink_raw(raw: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -36,11 +36,13 @@ def pool_bytes(num_slices: int, canvas_size: int) -> int:
     return num_slices * canvas_size ** 2 * 4
 
 
-def use_resident(mode: str, num_slices: int, canvas_size: int) -> bool:
-    """JAX's rule for ``device_resident_data``: ``"on"``, or ``"auto"`` with
-    a pool under :data:`RESIDENT_BUDGET_BYTES`; ``"off"`` streams."""
-    return mode == "on" or (mode == "auto" and
-                            pool_bytes(num_slices, canvas_size) < RESIDENT_BUDGET_BYTES)
+def use_resident(mode: str, num_slices: int, canvas_size: int, n_data: int = 1) -> bool:
+    """JAX's rule for ``device_resident_data`` (loop.py:413-423): ``"on"``,
+    or ``"auto"`` with a pool under :data:`RESIDENT_BUDGET_BYTES` a device
+    of the data mesh of ``n_data`` (the pool is sharded over it);
+    ``"off"`` streams."""
+    return mode == "on" or (mode == "auto" and pool_bytes(num_slices, canvas_size)
+                            < n_data * RESIDENT_BUDGET_BYTES)
 
 
 def stage_pool(ds: SliceDataset, device, shrink: bool) -> Dict[str, torch.Tensor]:

@@ -11,6 +11,12 @@ plain mean.  The reference asymmetry is kept on purpose: for losses that
 are element-wise over the class axis (soft CE, entropy, KL) the numerator
 sums over classes while the denominator counts only ``N*H*W`` mask
 entries.
+
+Data-parallel training (``parallel/mesh.py``): with a rank group
+(``ranks``) a loss is this rank's sum over the **global** count (the
+denominators are summed over the ranks, outside autograd), so the ranks'
+losses and gradients add up to the single-device loss and gradient on the
+global batch.
 """
 from __future__ import annotations
 
@@ -20,27 +26,41 @@ import torch.nn.functional as F
 _EPS_MASK = 1e-8
 
 
-def _masked_mean(loss, valid_mask):
+def _global(count, ranks):
+    """``count`` summed over the ranks (unchanged without a group)."""
+    return count if ranks is None else ranks.sum(count)
+
+
+def _mean(loss, ranks):
+    """The plain mean; with ``ranks``, this rank's sum over the global
+    element count (the ranks hold equal shares of the batch)."""
+    if ranks is None:
+        return loss.mean()
+    return loss.sum() / (loss.numel() * ranks.world)
+
+
+def _masked_mean(loss, valid_mask, ranks=None):
     """``sum(loss*mask)/max(sum(mask),1e-8)``, or the plain mean without a mask.
 
     ``loss`` may have more channels than ``valid_mask``; the mask
     broadcasts over the class axis (reference losses/losses.py:19-23).
     """
     if valid_mask is None:
-        return loss.mean()
+        return _mean(loss, ranks)
     valid_mask = valid_mask.float()
-    return (loss * valid_mask).sum() / valid_mask.sum().clamp_min(_EPS_MASK)
+    return (loss * valid_mask).sum() / _global(valid_mask.sum(), ranks).clamp_min(_EPS_MASK)
 
 
-def entropy_minimization_loss(logits, valid_mask=None):
+def entropy_minimization_loss(logits, valid_mask=None, ranks=None):
     """Shannon entropy of the per-pixel class distribution (losses.py:9-24).
 
     Args:
       logits: ``(N, C, H, W)``.
       valid_mask: optional ``(N, 1, H, W)``.
+      ranks: optional rank group (global normaliser, see the module doc).
     """
     log_p = F.log_softmax(logits.float(), dim=1)
-    return _masked_mean(-log_p.exp() * log_p, valid_mask)
+    return _masked_mean(-log_p.exp() * log_p, valid_mask, ranks)
 
 
 def cross_entropy_loss(logits, target):
@@ -56,7 +76,7 @@ def cross_entropy_loss(logits, target):
     return -(log_p * one_hot).sum(dim=1).mean()
 
 
-def partial_cross_entropy_loss(logits, target, ignore_index):
+def partial_cross_entropy_loss(logits, target, ignore_index, ranks=None):
     """Cross entropy over the pixels whose target is not ``ignore_index``.
 
     Reference losses/losses.py:35-43.  A batch whose pixels are all ignored
@@ -65,16 +85,17 @@ def partial_cross_entropy_loss(logits, target, ignore_index):
     Args:
       logits: ``(N, C, H, W)``.
       target: integer ``(N, H, W)``.
+      ranks: optional rank group (global normaliser).
     """
     log_p = F.log_softmax(logits.float(), dim=1)
     valid = target != ignore_index
     safe_target = torch.where(valid, target, torch.zeros_like(target))
     nll = -(log_p * _one_hot(safe_target, logits.shape[1], dim=1)).sum(dim=1)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.float().sum().clamp_min(_EPS_MASK)
+    return nll.sum() / _global(valid.float().sum(), ranks).clamp_min(_EPS_MASK)
 
 
-def soft_label_cross_entropy_loss(logits, target, valid_mask=None):
+def soft_label_cross_entropy_loss(logits, target, valid_mask=None, ranks=None):
     """Cross entropy against a soft target (losses.py:45-62).
 
     Args:
@@ -83,22 +104,22 @@ def soft_label_cross_entropy_loss(logits, target, valid_mask=None):
       valid_mask: optional ``(N, 1, H, W)``.
     """
     log_p = F.log_softmax(logits.float(), dim=1)
-    return _masked_mean(-target.float() * log_p, valid_mask)
+    return _masked_mean(-target.float() * log_p, valid_mask, ranks)
 
 
-def l1_loss(probs, target, valid_mask=None):
+def l1_loss(probs, target, valid_mask=None, ranks=None):
     """L1 distance of probability maps, summed over classes (losses.py:64-79)."""
     diff = (probs.float() - target.float()).abs().sum(dim=1, keepdim=True)
-    return _masked_mean(diff, valid_mask)
+    return _masked_mean(diff, valid_mask, ranks)
 
 
-def l2_loss(probs, target, valid_mask=None):
+def l2_loss(probs, target, valid_mask=None, ranks=None):
     """Squared distance of probability maps, summed over classes (losses.py:81-96)."""
     diff = (probs.float() - target.float()).square().sum(dim=1, keepdim=True)
-    return _masked_mean(diff, valid_mask)
+    return _masked_mean(diff, valid_mask, ranks)
 
 
-def kl_loss(logits, target_logits, valid_mask=None):
+def kl_loss(logits, target_logits, valid_mask=None, ranks=None):
     """KL(target || input) from two logit maps (losses.py:98-116).
 
     ``F.kl_div(input_ll, target_ll, log_target=True)`` element-wise:
@@ -106,29 +127,30 @@ def kl_loss(logits, target_logits, valid_mask=None):
     """
     input_ll = F.log_softmax(logits.float(), dim=1)
     target_ll = F.log_softmax(target_logits.float(), dim=1)
-    return _masked_mean(target_ll.exp() * (target_ll - input_ll), valid_mask)
+    return _masked_mean(target_ll.exp() * (target_ll - input_ll), valid_mask, ranks)
 
 
-def bidirectional_kl_loss(logits, target_logits, valid_mask=None):
+def bidirectional_kl_loss(logits, target_logits, valid_mask=None, ranks=None):
     """``(KL(t||i) + KL(i||t)) / 2`` (losses.py:118-145)."""
-    p = kl_loss(logits, target_logits, valid_mask)
-    q = kl_loss(target_logits, logits, valid_mask)
+    p = kl_loss(logits, target_logits, valid_mask, ranks)
+    q = kl_loss(target_logits, logits, valid_mask, ranks)
     return (p + q) / 2.0
 
 
-def dice_loss_fn(logits, target_one_hot):
+def dice_loss_fn(logits, target_one_hot, ranks=None):
     """Soft Dice objective; returns the **negative** mean Dice (losses.py:147-162).
 
     Args:
       logits: ``(N, C, H, W)``.
       target_one_hot: ``(N, C, H, W)``.
+      ranks: optional rank group (the mean over the global batch).
     """
     eps = 1e-5
     p = F.softmax(logits.float(), dim=1)
     t = target_one_hot.float()
     inter = 2.0 * (p * t).sum(dim=(2, 3))                      # (N, C)
     denom = p.sum(dim=(2, 3)) + t.sum(dim=(2, 3)) + eps
-    return -(inter / denom).mean()
+    return -_mean(inter / denom, ranks)
 
 
 def multi_label_soft_margin_loss(logits, target):

@@ -18,6 +18,11 @@ from the pure function :func:`memory_update`.  Reference quirks kept:
   EMA blend (aux_path_memory.py:106);
 * an all-zero row takes the raw masked mean with no momentum (cold start,
   aux_path_memory.py:92-95).
+
+In data-parallel training the step folds the gathered global batch into
+the bank (``train/step.py``), and :class:`Dropout2d` draws the global
+batch's channel mask on every rank and keeps the rank's rows, so both are
+the single-device functions.
 """
 from __future__ import annotations
 
@@ -30,6 +35,24 @@ from pacingpseudo_torch.models.norm import BatchNorm2d
 from pacingpseudo_torch.models.unet import Conv2d
 from pacingpseudo_torch.ops.resize import bilinear_resize_align_corners
 from pacingpseudo_torch.train.schedules import memory_momentum
+
+
+class Dropout2d(nn.Dropout2d):
+    """``nn.Dropout2d`` that, with a rank group (``ranks``), draws the
+    ``(N·W, C, 1, 1)`` mask of the global batch as ``F.dropout2d`` draws
+    it (``bernoulli_(1 - p)`` in the input's dtype, divided by ``1 - p``)
+    and applies this rank's rows."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__(p)
+        self.ranks = None
+
+    def forward(self, x):
+        if self.ranks is None or not self.training or self.p == 0.0:
+            return super().forward(x)
+        noise = x.new_empty((x.shape[0] * self.ranks.world, x.shape[1], 1, 1))
+        noise.bernoulli_(1.0 - self.p).div_(1.0 - self.p)
+        return x * self.ranks.local_rows(noise)
 
 
 class AuxPath(nn.Module):
@@ -49,14 +72,14 @@ class AuxPath(nn.Module):
         self.feat_stage = tuple(feat_stage)
         self.dtype = dtype
         self.layer_bottleneck = nn.Sequential(
-            nn.Dropout2d(aux_drop_prob),
+            Dropout2d(aux_drop_prob),
             Conv2d(in_ch, hid_ch, 3, padding=1, compute_dtype=dtype,
                    device=device),
             BatchNorm2d(hid_ch, device=device),
             nn.LeakyReLU(1e-2),
         )
         self.fc_cls = nn.Sequential(
-            nn.Dropout2d(aux_drop_prob),
+            Dropout2d(aux_drop_prob),
             Conv2d(hid_ch, num_classes, 1, bias=False, device=device),
         )
         self.register_buffer("memory_bank", init_memory_bank(

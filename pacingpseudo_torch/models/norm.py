@@ -17,6 +17,15 @@ variance; the JAX package (``pacingpseudo_tpu/models/norm.py:90-124`` and
   (``ops/fused_convbn.py``) calls too, as the JAX package's
   ``BNParamsOnly.__call__`` serves both of its paths.
 
+With a rank group (``ranks``, set by ``parallel.mesh.attach_ranks``) the
+training statistics are the **global** batch's (sync BN, as the JAX
+package's sharded step computes them): each rank's per-channel sum, sum of
+squares and count are summed over the ranks by
+``parallel.mesh.sum_over_ranks``, whose backward sums the statistics'
+gradients (the channel sums Σdy and Σdy·x̂ of the BN backward) over the
+ranks in turn.  The running statistics then update identically on every
+rank.
+
 Parameter and buffer names are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so the
 state_dict has the reference layout.
@@ -25,6 +34,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from pacingpseudo_torch.parallel.mesh import sum_over_ranks
 
 
 class BatchNorm2d(nn.Module):
@@ -41,12 +52,20 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, **f32))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
+        self.ranks = None     # a parallel.mesh.RankGroup: sync BN over its ranks
 
     def forward(self, x):
         x32 = x.float()
         if self.training:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            if self.ranks is None:
+                mean = x32.mean(dim=(0, 2, 3))
+                mean_sq = x32.square().mean(dim=(0, 2, 3))
+            else:
+                sums = sum_over_ranks(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                                   x32.square().sum(dim=(0, 2, 3))]),
+                                      self.ranks)
+                mean, mean_sq = sums / (x32.numel() // x32.shape[1] * self.ranks.world)
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

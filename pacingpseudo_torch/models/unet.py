@@ -104,7 +104,10 @@ class ConvLayer(nn.Module):
 
     def is_fused(self, h: int, w: int) -> bool:
         """Whether an ``h`` x ``w`` input takes the fused path now."""
-        return self.training and get_conv_impl() == "fused" and self.fusable(h, w)
+        # The kernels' BN statistics are the rank's own: a synchronised
+        # BatchNorm (data-parallel training) takes the unfused path.
+        return (self.training and get_conv_impl() == "fused" and self.norm_op.ranks is None
+                and self.fusable(h, w))
 
     def forward(self, x, padded_in: bool = False, padded_out: bool = False):
         edge = 2 if padded_in else 0

@@ -302,13 +302,20 @@ def fused_loss_backward(logits_weak, logits_strong, scb_target, valid_mask,
 
 
 class _FusedPacingLosses(torch.autograd.Function):
-    """Kernel forward, kernel (analytic) backward."""
+    """Kernel forward, kernel (analytic) backward.  With a rank group the
+    two counts of the forward's result are summed over the ranks and the
+    three losses become this rank's sums over the global denominators,
+    which the backward then scales by; the kernels do not change."""
 
     @staticmethod
     def forward(ctx, logits_weak, logits_strong, scb_target, valid_mask,
-                ignore_index):
+                ignore_index, ranks):
         out = fused_loss_forward(logits_weak, logits_strong, scb_target,
                                  valid_mask, ignore_index)
+        if ranks is not None:
+            cnt, msum = ranks.sum(out[[1, 4]]).clamp_min(_EPS).unbind()
+            den = torch.stack([cnt, msum, msum])
+            out = torch.cat([out[:5], out[[0, 2, 3]] / den, den])
         ctx.save_for_backward(logits_weak, logits_strong, scb_target,
                               valid_mask, out)
         ctx.ignore_index = ignore_index
@@ -320,14 +327,16 @@ class _FusedPacingLosses(torch.autograd.Function):
         scal = torch.stack([g_pce, g_ent, g_sce]).float() / out[8:]
         dlw, dls = fused_loss_backward(logits_weak, logits_strong, scb_target,
                                        valid_mask, scal, ctx.ignore_index)
-        return dlw, dls, None, None, None
+        return dlw, dls, None, None, None, None
 
 
 def fused_pacing_losses(logits_weak, logits_strong, scb_target, valid_mask,
-                        ignore_index: int):
+                        ignore_index: int, ranks=None):
     """``(loss_pce, loss_ent, loss_sce)`` with the reference normalisation:
     ``sum/max(cnt,1e-8)`` over non-ignored pixels for the partial CE and
     ``sum/max(sum(mask),1e-8)`` for the two masked losses.  Differentiable
-    in both logit fields.  Layout and dtypes: see the module docstring."""
+    in both logit fields.  Layout and dtypes: see the module docstring.
+    With ``ranks`` (a ``parallel.mesh.RankGroup``) the counts are the
+    global batch's and each loss is this rank's share of the global loss."""
     return _FusedPacingLosses.apply(logits_weak, logits_strong, scb_target,
-                                    valid_mask, ignore_index)
+                                    valid_mask, ignore_index, ranks)

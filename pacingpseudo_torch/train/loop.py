@@ -52,7 +52,24 @@ streams, as JAX's streaming validation is.  ``profile_dir``: a
 ``torch.profiler`` trace of epoch ``start + 1`` (with its validation),
 as JAX traces it.
 
-Not ported (``ROADMAP.md``): the mesh / spatial / multi-device branch.
+Several devices (JAX's ``loop.py:254-285,319-364``): ``device`` may list
+devices (``--gpu 0,1``; on the CPU ``config.num_devices`` ranks share it),
+``config.num_devices`` takes the first k of them (0: all), and
+``parallel.mesh.plan_data_parallel`` splits them as JAX does; a split that
+needs a ``space`` axis (height sharding, not ported) exits with a message.
+A data mesh of ``W > 1`` runs one process a rank (``spawn``; rendezvous
+through a ``FileStore`` in the run directory; NCCL across cards, gloo on
+the CPU or on a shared card), each with its replica of the state and the
+rows of each global batch that are its own (``train/step.py``).  The
+training pool is sharded over the ranks (``parallel.mesh.
+stage_resident_pool``) and its budget is ``W x 6 GiB``; validation splits
+each block's rows over the ranks and sums the results.  Steps run eagerly
+(no CUDA graph), and the fused ConvLayer is off for the run on every rank,
+as in JAX, because its kernels' BN statistics are the rank's own.  Rank 0
+alone writes ``log.txt``, ``config.json``, ``valdice.npz``, TensorBoard and
+the checkpoints, whose layout is the single-device one: a W-rank
+checkpoint resumes in a single-device run and the other way round.  Not
+ported (``ROADMAP.md``): height sharding (``parallel/spatial.py``).
 """
 from __future__ import annotations
 
@@ -63,7 +80,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,6 +95,7 @@ from pacingpseudo_torch.data.resident import (gather, pool_bytes, stage_pool,
 from pacingpseudo_torch.data.splits import read_fold_split
 from pacingpseudo_torch.evals.dice import dice_per_class
 from pacingpseudo_torch.losses import partial_cross_entropy_loss
+from pacingpseudo_torch.parallel import mesh
 from pacingpseudo_torch.train import checkpoint as ckpt_lib
 from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.state import TrainState, create_train_state
@@ -259,7 +277,7 @@ def stage_val_pool(val_ds: SliceDataset, batch_size: int, device,
     return ValPool(raw, idx, valid)
 
 
-def make_resident_eval_fn(config: ExperimentConfig):
+def make_resident_eval_fn(config: ExperimentConfig, ranks: Optional[mesh.RankGroup] = None):
     """The whole validation pass over a :class:`ValPool`, accumulated on
     the device (the port of ``pacingpseudo_tpu/train/step.py:341-432``):
     ``(state, pool) -> {loss_sum, n_sum, dice_sum (C,), dice_cnt (C,)}``,
@@ -275,8 +293,12 @@ def make_resident_eval_fn(config: ExperimentConfig):
     (upper_bound_chaos.py:186-209) with JAX's resident target
     (``step.py:388-398``): the raw label where it names a class, else 0, so
     canvas padding counts as background; the padded duplicate samples are
-    ignored."""
-    eval_step = make_pacing_eval_step(config)
+    ignored.
+
+    With ``ranks`` each rank evaluates its rows of every block (the loss
+    as its share of the block's global count) and the sums are summed over
+    the ranks at the end: every rank returns the single-device sums."""
+    eval_step = make_pacing_eval_step(config, ranks)
     num_classes = config.num_classes
     upper_bound = config.session == "Upperbound"
 
@@ -288,6 +310,9 @@ def make_resident_eval_fn(config: ExperimentConfig):
                "dice_sum": torch.zeros(num_classes, dtype=torch.float64, device=dev),
                "dice_cnt": torch.zeros(num_classes, dtype=torch.float64, device=dev)}
         for idx, valid in zip(pool.idx_blocks, pool.valid_blocks):
+            n_real = valid.sum().double()
+            if ranks is not None:
+                idx, valid = ranks.local_rows(idx), ranks.local_rows(valid)
             raw = {k: v[idx] for k, v in pool.raw.items()}
             batch = eval_preprocess_batch(raw, num_classes)
             batch["sample_valid"] = valid
@@ -296,17 +321,21 @@ def make_resident_eval_fn(config: ExperimentConfig):
                 label = raw["label"].long()
                 target = torch.where(label < num_classes, label, 0)
                 target = torch.where(valid[:, None, None], target, config.ignored_index)
-                loss = partial_cross_entropy_loss(logits, target, config.ignored_index)
+                loss = partial_cross_entropy_loss(logits, target, config.ignored_index,
+                                                  ranks)
                 dice = dice_per_class(torch.softmax(logits, dim=1), batch["label"],
                                       region_mask=batch["region_mask"])
             else:
                 loss, dice, _ = eval_step(state, batch)
             ok = ~torch.isnan(dice) & valid[:, None]
-            n_real = valid.sum().double()
             acc["loss_sum"] += loss.double() * n_real
-            acc["n_sum"] += n_real
+            acc["n_sum"] += valid.sum().double()
             acc["dice_sum"] += torch.where(ok, dice, 0.0).double().sum(0)
             acc["dice_cnt"] += ok.double().sum(0)
+        if ranks is not None:
+            flat = ranks.sum_(torch.cat([v.reshape(-1) for v in acc.values()]))
+            acc = dict(zip(acc, flat.split([v.numel() for v in acc.values()])))
+            acc["loss_sum"], acc["n_sum"] = acc["loss_sum"][0], acc["n_sum"][0]
         return acc
 
     return eval_all
@@ -330,27 +359,97 @@ def _augment_params(config: ExperimentConfig):
     return base, strong_params_for(config.augmentations, config.strength)
 
 
+def resolve_devices(device: Union[str, torch.device, Sequence], num_devices: int = 0
+                    ) -> List[torch.device]:
+    """The devices of a run: ``device`` (one device, or a list of cards), the
+    first ``num_devices`` of them (0: all).  The CPU is one device that
+    ``num_devices`` ranks may share.  A card that does not exist raises;
+    there is no CPU fallback, and a run never quietly gets fewer devices
+    than it asks for."""
+    listed = ([torch.device(device)] if isinstance(device, (str, torch.device))
+              else [torch.device(d) for d in device])
+    if not listed:
+        raise ValueError("no device given")
+    if all(d.type == "cpu" for d in listed):
+        return [torch.device("cpu")] * max(1, int(num_devices))
+    for i, d in enumerate(listed):
+        if d.type != "cuda":
+            raise ValueError(f"a run on cards lists {d}: the devices are "
+                             f"{', '.join(map(str, listed))}")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for {d}: pass the CPU explicitly")
+        index = torch.cuda.current_device() if d.index is None else d.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"{d} does not exist: this machine has "
+                               f"{torch.cuda.device_count()} card(s)")
+        listed[i] = torch.device("cuda", index)
+    if num_devices > len(listed):
+        raise SystemExit(f"--num_devices {num_devices}: only {len(listed)} card(s) "
+                         f"listed ({', '.join(map(str, listed))})")
+    return listed[:num_devices or len(listed)]
+
+
 def train_driver(config: ExperimentConfig, data_root: str,
                  run_dir: Optional[str] = None,
                  max_steps_per_epoch: Optional[int] = None,
                  stop_after_epoch: Optional[int] = None,
                  device="cuda") -> str:
-    """Run a full training session on ``device``; returns the run directory.
+    """Run a full training session; returns the run directory.
 
+    ``device``: one device or a list of cards, of which
+    ``config.num_devices`` are used (:func:`resolve_devices`); a data mesh
+    of more than one runs one process a rank (the module docstring).
     ``stop_after_epoch=k`` saves ``ckps/ckp_k`` and exits cleanly after
     epoch ``k`` (schedules still span ``config.epoch``): a crash-at-epoch-k
     simulator for resume-equivalence checks.
     """
-    return _train_driver(config, data_root, run_dir, max_steps_per_epoch,
-                         stop_after_epoch, device)[0]
+    devices = resolve_devices(device, config.num_devices)
+    world, split = mesh.plan_data_parallel(len(devices), config.batch_size,
+                                           int(config.spatial_shards))
+    if world == 1:
+        return _train_driver(config, data_root, run_dir, max_steps_per_epoch,
+                             stop_after_epoch, devices[0])[0]
+    if run_dir is None:
+        run_dir = make_run_dir(config)
+    os.makedirs(run_dir, exist_ok=True)
+    devices = devices[:world]
+    split = (f"{split}, ranks on {', '.join(map(str, devices))} over "
+             f"{mesh.backend_for(devices)}")
+    store = os.path.join(run_dir, f".ranks-{os.getpid()}-{time.time_ns()}")
+    threads = max(1, torch.get_num_threads() // world)
+    try:
+        mesh.spawn_ranks(_rank_main, world, (devices, split, store, threads, config,
+                                             data_root, run_dir, max_steps_per_epoch,
+                                             stop_after_epoch))
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    return run_dir
+
+
+def _rank_main(rank: int, devices, split: str, store: str, threads: int,
+               config: ExperimentConfig, data_root: str, run_dir: str,
+               max_steps_per_epoch, stop_after_epoch) -> None:
+    """One rank of a data-parallel run (a spawned process)."""
+    if devices[rank].type == "cpu":
+        torch.set_num_threads(threads)
+    ranks = mesh.init_rank_group(rank, devices, store)
+    # The fused ConvLayer's kernels would take the rank's own BN statistics:
+    # a layer whose BatchNorm has ranks takes the unfused path
+    # (``ConvLayer.is_fused``), in every rank whatever the conv impl.
+    _train_driver(config, data_root, run_dir, max_steps_per_epoch, stop_after_epoch,
+                  devices[rank], ranks=ranks, split=split)
+    mesh.close_rank_group(ranks)
 
 
 def _train_driver(config: ExperimentConfig, data_root: str,
                   run_dir: Optional[str] = None,
                   max_steps_per_epoch: Optional[int] = None,
                   stop_after_epoch: Optional[int] = None,
-                  device="cuda") -> Tuple[str, TrainState]:
-    """:func:`train_driver`, returning ``(run_dir, final train state)``."""
+                  device="cuda", ranks: Optional[mesh.RankGroup] = None,
+                  split: str = "one device") -> Tuple[str, TrainState]:
+    """:func:`train_driver` on one device, or as one rank of ``ranks``;
+    returns ``(run_dir, final train state)``."""
     config.validate()
     upper_bound = config.session == "Upperbound"
     device = torch.device(device)
@@ -360,13 +459,18 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     do_strong = config.do_decoder_consistency and not upper_bound
+    lead = ranks is None or ranks.rank == 0      # writes the run's files
+    world = 1 if ranks is None else ranks.world
 
     if run_dir is None:
         run_dir = make_run_dir(config)
     os.makedirs(os.path.join(run_dir, "ckps"), exist_ok=True)
-    setup_logging(run_dir)
-    dump_config(run_dir, config)
+    if lead:
+        setup_logging(run_dir)
+        dump_config(run_dir, config)
     logging.info("config: %s", json.dumps(dataclasses.asdict(config), default=str))
+    if ranks is not None:
+        logging.info("data-parallel: %s; rank 0 writes the run", split)
 
     # ---- data
     train_files, val_files = read_fold_split(
@@ -398,17 +502,27 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             ckpt_lib.restore_checkpoint(latest, state)
             start_epoch = state.step // steps_per_epoch
             logging.info("resumed from %s at epoch %d", latest, start_epoch)
+    if ranks is not None:
+        mesh.replicate(state.model, ranks)
 
     # Dispatch: `chunk` updates a call; the resident pool or the loader's
-    # stream (JAX's loop.py:407-437).
+    # stream (JAX's loop.py:407-437).  Ranks step eagerly: their collectives
+    # are not captured in CUDA graphs.
     chunk = min(max(1, int(config.steps_per_dispatch)), steps_per_epoch)
+    if ranks is not None:
+        chunk = 1
     resident = use_resident(config.device_resident_data, len(train_ds),
-                            train_ds.canvas_size)
-    train_pool = None
+                            train_ds.canvas_size, world)
+    train_pool, pool_gather = None, gather
     if resident:
-        logging.info("staging %d slices (%.2f GB) in device memory", len(train_ds),
-                     pool_bytes(len(train_ds), train_ds.canvas_size) / 2 ** 30)
-        train_pool = stage_train_pool(train_ds, device)
+        logging.info("staging %d slices (%.2f GB, /%d devices) in device memory",
+                     len(train_ds), pool_bytes(len(train_ds), train_ds.canvas_size) / 2 ** 30,
+                     world)
+        if ranks is None:
+            train_pool = stage_train_pool(train_ds, device)
+        else:
+            train_pool = mesh.stage_resident_pool(train_ds, ranks)
+            pool_gather = mesh.make_resident_gather(ranks)
     logging.info("steps per dispatch %d (%s), training data %s", chunk,
                  "CUDA graph replays" if uses_graph(device, chunk) else "eager steps",
                  "resident on the device" if resident else "streamed")
@@ -419,19 +533,22 @@ def _train_driver(config: ExperimentConfig, data_root: str,
 
     def make_chunked(step):
         if resident:
-            return make_resident_chunked_train_step(step, chunk, train_pool, graph)
+            return make_resident_chunked_train_step(step, chunk, train_pool, graph,
+                                                    pool_gather)
         return make_chunked_train_step(step, chunk, graph)
 
-    train_step = make_chunked(make_train(config, steps_per_epoch, augment_fn=augment_fn))
+    train_step = make_chunked(make_train(config, steps_per_epoch, augment_fn=augment_fn,
+                                         ranks=ranks))
     train_step_frozen = None
     if config.ref_quirk_bn_eval_after_first_epoch:
         train_step_frozen = make_chunked(
-            make_train(config, steps_per_epoch, module_train=False, augment_fn=augment_fn))
+            make_train(config, steps_per_epoch, module_train=False, augment_fn=augment_fn,
+                       ranks=ranks))
     val_pool = stage_val_pool(val_ds, config.batch_size, device, shrink=resident)
-    resident_eval = make_resident_eval_fn(config)
+    resident_eval = make_resident_eval_fn(config, ranks)
     generator = torch.Generator(device=device)
 
-    tb = _tb_writer(run_dir)
+    tb = _tb_writer(run_dir) if lead else None
     valdice = np.zeros(config.epoch)
     best_avg, best_epoch = 0.0, 0
     if start_epoch > 0:
@@ -450,7 +567,7 @@ def _train_driver(config: ExperimentConfig, data_root: str,
 
     profiler = None
     for epoch in range(start_epoch, config.epoch):
-        if config.profile_dir and epoch == start_epoch + 1:
+        if config.profile_dir and epoch == start_epoch + 1 and lead:
             # one trace, after the first epoch's warm-up (JAX's
             # loop.py:510-519)
             profiler = _start_profiler(device)
@@ -519,13 +636,15 @@ def _train_driver(config: ExperimentConfig, data_root: str,
                 tb.add_scalar(tag, v, epoch)
             tb.add_scalar("perf/slices_per_sec", slices_per_sec, epoch)
 
-            # TB figure panels from the LAST training batch
-            # (train_chaos.py:320-360); the augmentation is drawn again
-            # with an epoch-keyed seed and one frozen-BN forward.  The
-            # upper-bound session draws none, as in JAX (loop.py:487).
-            if config.tb_figures and not upper_bound:
-                fig_raw = (gather(train_pool, last) if resident else
-                           raw_batch_to_device(last, device, shrink=True))
+        # TB figure panels from the LAST training batch
+        # (train_chaos.py:320-360); the augmentation is drawn again with an
+        # epoch-keyed seed and one frozen-BN forward.  The upper-bound
+        # session draws none, as in JAX (loop.py:487).  A sharded pool's
+        # gather is a collective, so every rank joins it.
+        if config.tb_figures and not upper_bound and (tb or (world > 1 and resident)):
+            fig_raw = (pool_gather(train_pool, last) if resident else
+                       raw_batch_to_device(last, device, shrink=True))
+            if tb:
                 generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
                 fig_batch = augment_fn(fig_raw, generator)
                 fig_out = _figure_forward(state, fig_batch)
@@ -542,7 +661,8 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         valdice[epoch] = avg_all
         # persist every epoch (cheap) so crash+resume keeps the history;
         # the reference wrote it once at the end (train_chaos.py:428)
-        np.savez(os.path.join(run_dir, "valdice"), valdice=valdice)
+        if lead:
+            np.savez(os.path.join(run_dir, "valdice"), valdice=valdice)
         spec_names = list(config.spec.classnames)
         logging.info("val: %03d, loss: %.6f, [%s, All: %.4f]",
                      epoch, val_loss_avg,
@@ -564,11 +684,12 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         save_interval = ((epoch + 1) % config.ckp_interval == 0
                          or (epoch + 1) == config.epoch)
         stop = stop_after_epoch is not None and epoch >= stop_after_epoch
-        if save_interval or stop:
+        if (save_interval or stop) and lead:
             _save(os.path.join(run_dir, "ckps", f"ckp_{epoch}"), state)
         if avg_all > best_avg:
             best_epoch, best_avg = epoch, avg_all
-            _save(os.path.join(run_dir, "best_ckp"), state)
+            if lead:
+                _save(os.path.join(run_dir, "best_ckp"), state)
         if stop:
             logging.info("stop_after_epoch=%d: exiting", stop_after_epoch)
             break
@@ -579,7 +700,8 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         state.optimizer.zero_grad(set_to_none=True)
         graph.reset()
     logging.info("The best at epoch: %d, All: %.4f", best_epoch, best_avg)
-    np.savez(os.path.join(run_dir, "valdice"), valdice=valdice)
+    if lead:
+        np.savez(os.path.join(run_dir, "valdice"), valdice=valdice)
     if tb:
         tb.close()
     return run_dir, state

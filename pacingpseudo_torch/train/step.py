@@ -25,9 +25,20 @@ run up to ``chunk`` updates a call, on stacked raw batches or on index
 blocks into a resident pool, and add their metrics on the device.  On a
 card with ``chunk > 1`` each update is a replay of one captured CUDA graph
 of the step (``train/graph.py``); elsewhere the eager step runs.
+
+Data-parallel steps (``ranks``, a ``parallel.mesh.RankGroup``): every rank
+takes the **global** batch, augments all of it with the generators seeded
+as the single-device step seeds them, and keeps its rows; the forward runs
+on those rows with synchronised BatchNorm, each loss is the rank's sum
+over the global count, the bank folds the gathered global batch in order,
+and the gradients and metrics are summed over the ranks before the
+update, which is then the same on every rank.  So one update is the
+single-device update on the global batch (the JAX package's sharded step,
+``pacingpseudo_tpu/parallel/mesh.py``).  These steps run eagerly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +59,7 @@ from pacingpseudo_torch.losses import (
 from pacingpseudo_torch.data.resident import gather
 from pacingpseudo_torch.models.aux_path import memory_update
 from pacingpseudo_torch.ops.fused_loss import fused_pacing_losses
+from pacingpseudo_torch.parallel.mesh import attach_ranks
 from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.optim import lr_at, set_lr
 from pacingpseudo_torch.train.schedules import gaussian_ramp_up
@@ -76,9 +88,10 @@ def _ramp(config, epoch, weight, ramp):
             if ramp else weight)
 
 
-def _pacing_losses(config, model, batch, epoch):
+def _pacing_losses(config, model, batch, epoch, ranks=None):
     """Forward and loss assembly of one pacing step: ``(total, metrics,
-    new_bank)``; ``new_bank`` is None without the memory bank."""
+    new_bank)``; ``new_bank`` is None without the memory bank.  With
+    ``ranks`` the batch is this rank's rows and every loss its share."""
     scribble = batch["scribble"]
     valid_mask = batch.get("valid_mask")
     image_strong = (batch.get("image_strong")
@@ -90,7 +103,7 @@ def _pacing_losses(config, model, batch, epoch):
     if _use_fused_loss_kernel(config, logits_weak, valid_mask):
         loss_pce, ent_raw, sce_raw = fused_pacing_losses(
             logits_weak, outputs["segmentation/logits_strong"], scb_target,
-            valid_mask[:, 0], config.ignored_index)
+            valid_mask[:, 0], config.ignored_index, ranks)
         total = loss_pce
         metrics = {"loss_pce": loss_pce}
         if config.do_loss_ent:
@@ -103,17 +116,17 @@ def _pacing_losses(config, model, batch, epoch):
         total = total + loss_cr
         metrics["loss_cr"] = loss_cr
         return _pacing_aux_losses(config, model, outputs, scribble,
-                                  scb_target, epoch, total, metrics)
+                                  scb_target, epoch, total, metrics, ranks)
 
     # Reference: consistency_reglur_memory.py:29-36
     loss_pce = partial_cross_entropy_loss(logits_weak, scb_target,
-                                          config.ignored_index)
+                                          config.ignored_index, ranks)
     total = loss_pce
     metrics = {"loss_pce": loss_pce}
 
     if config.do_loss_ent:
         # Reference: consistency_reglur_memory.py:39-44, train_chaos.py:277-283
-        loss_ent = entropy_minimization_loss(logits_weak, valid_mask) * _ramp(
+        loss_ent = entropy_minimization_loss(logits_weak, valid_mask, ranks) * _ramp(
             config, epoch, config.loss_ent_weight, config.ramp_up_loss_ent)
         total = total + loss_ent
         metrics["loss_ent"] = loss_ent
@@ -126,17 +139,17 @@ def _pacing_losses(config, model, batch, epoch):
             prob_weak = prob_weak.detach()
         if config.loss_cr_variants == "ce_loss":
             loss_cr = soft_label_cross_entropy_loss(logits_strong, prob_weak,
-                                                    valid_mask)
+                                                    valid_mask, ranks)
         elif config.loss_cr_variants == "l1_loss":
             loss_cr = l1_loss(F.softmax(logits_strong, dim=1), prob_weak,
-                              valid_mask)
+                              valid_mask, ranks)
         elif config.loss_cr_variants == "l2_loss":
             loss_cr = l2_loss(F.softmax(logits_strong, dim=1), prob_weak,
-                              valid_mask)
+                              valid_mask, ranks)
         elif config.loss_cr_variants == "kl_loss":
             # The reference feeds raw weak logits here: detach_weak_cr does
             # not apply to the kl variant (consistency_reglur_memory.py:63).
-            loss_cr = kl_loss(logits_strong, logits_weak, valid_mask)
+            loss_cr = kl_loss(logits_strong, logits_weak, valid_mask, ranks)
         else:
             raise ValueError("The loss is not implemented.")
         loss_cr = loss_cr * _ramp(config, epoch, config.loss_cr_weight,
@@ -145,27 +158,34 @@ def _pacing_losses(config, model, batch, epoch):
         metrics["loss_cr"] = loss_cr
 
     return _pacing_aux_losses(config, model, outputs, scribble, scb_target,
-                              epoch, total, metrics)
+                              epoch, total, metrics, ranks)
 
 
 def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
-                       total, metrics):
-    """Aux-path and memory-bank tail shared by both loss paths."""
+                       total, metrics, ranks=None):
+    """Aux-path and memory-bank tail shared by both loss paths.  With
+    ``ranks`` the bank folds the global batch (every rank's aux features
+    and scribbles, gathered in rank order), so it stays equal on every
+    rank, and the memory loss, which every rank computes whole, counts
+    ``1/world`` on each."""
     new_bank = None
     if config.do_aux_path:
         # Reference: consistency_reglur_memory.py:73-90, train_chaos.py:294-301
         loss_aux = partial_cross_entropy_loss(
             outputs["aux/logits"], scb_target,
-            config.ignored_index) * config.loss_aux_weight
+            config.ignored_index, ranks) * config.loss_aux_weight
         total = total + loss_aux
         metrics["loss_aux_cls"] = loss_aux
 
         if config.do_memory:
             # Reference: aux_path_memory.py:59-65 -- the bank is updated
             # first, then the shared classifier scores the fresh prototypes.
+            features = outputs["aux/features"]
+            if ranks is not None:
+                features, scribble = ranks.gather_rows(features), ranks.gather_rows(scribble)
             new_bank = memory_update(
                 model.aux_path.memory_bank[:, :, 0, 0],
-                outputs["aux/features"], scribble,
+                features, scribble,
                 step=epoch, max_step=config.epoch,
                 momentum=config.update_momentum,
                 ensemble_mode=config.ensemble_mode,
@@ -175,6 +195,8 @@ def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
                 logits_memory,
                 torch.arange(config.num_classes, device=logits_memory.device))
             loss_memory = loss_memory * config.loss_memory_weight
+            if ranks is not None:
+                loss_memory = loss_memory / ranks.world
             total = total + loss_memory
             metrics["loss_memory"] = loss_memory
 
@@ -212,12 +234,17 @@ def seed_step(generator: torch.Generator, device: torch.device, seed: int, step:
 
 
 def _make_train_step(config, steps_per_epoch: int, losses: Callable,
-                     module_train: bool, augment_fn: Optional[Callable]):
+                     module_train: bool, augment_fn: Optional[Callable], ranks=None):
     """The step skeleton both sessions share: augment, forward and losses
     (``losses(config, model, batch, epoch) -> (total, metrics, new_bank)``),
     backward, the optimizer update with the per-epoch learning rate, the
     bank's EMA when ``new_bank`` is not None.  The step's ``scalars(step)``
-    gives the :class:`StepScalars` of an update."""
+    gives the :class:`StepScalars` of an update.  With ``ranks`` the
+    (augmented) global batch is cut to this rank's rows, ``losses`` gets
+    ``ranks=ranks``, and the gradients and metrics are summed over the
+    ranks."""
+    if ranks is not None:
+        losses = functools.partial(losses, ranks=ranks)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -228,10 +255,16 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
                 raise ValueError("a step with an augment_fn needs a generator")
             with torch.no_grad():
                 batch = augment_fn(batch, generator)
+        if ranks is not None:
+            batch = {k: ranks.local_rows(v) for k, v in batch.items()}
+            attach_ranks(model, ranks)
         model.train(module_train)
         opt.zero_grad(set_to_none=True)
         total, metrics, new_bank = losses(config, model, batch, epoch)
         total.backward()
+        if ranks is not None:
+            ranks.sum_grads(model.parameters())
+            metrics = ranks.sum_metrics(metrics)
         set_lr(opt, lr)
         opt.step()
         if new_bank is not None:
@@ -312,7 +345,8 @@ def make_chunked_train_step(step: Callable, chunk: int, graph: Optional[StepGrap
 
 def make_resident_chunked_train_step(step: Callable, chunk: int,
                                      pool: Dict[str, torch.Tensor],
-                                     graph: Optional[StepGraph] = None):
+                                     graph: Optional[StepGraph] = None,
+                                     pool_gather: Callable = gather):
     """Up to ``chunk`` train steps a call on the resident ``pool``: the
     counterpart of JAX's ``make_resident_chunked_train_step``
     (``step.py:273-305``) on one device.  The pool is bound here, where
@@ -321,10 +355,11 @@ def make_resident_chunked_train_step(step: Callable, chunk: int,
 
     Returns ``(state, idx_block, generator, seed, acc=None) -> acc``:
     ``idx_block`` (K, N) int32 on the pool's device, ``K <= chunk``; update
-    ``k`` steps on ``data.resident.gather(pool, idx_block[k])``.  The rest
-    as :func:`make_chunked_train_step`; in a graph the gather is captured
-    too, so a replay reads only the index block."""
-    run = _chunk_runner(step, chunk, lambda x: gather(pool, x["idx"]), graph)
+    ``k`` steps on ``pool_gather(pool, idx_block[k])`` (``data.resident.
+    gather``; a rank's shard takes ``parallel.mesh.make_resident_gather``).
+    The rest as :func:`make_chunked_train_step`; in a graph the gather is
+    captured too, so a replay reads only the index block."""
+    run = _chunk_runner(step, chunk, lambda x: pool_gather(pool, x["idx"]), graph)
 
     def chunked(state, idx_block, generator, seed, acc=None):
         return run(state, {"idx": idx_block}, generator, seed, acc)
@@ -334,8 +369,8 @@ def make_resident_chunked_train_step(step: Callable, chunk: int,
 
 def make_pacing_train_step(config, steps_per_epoch: int,
                            module_train: bool = True,
-                           augment_fn: Optional[Callable] = None
-                           ) -> Callable[..., Dict]:
+                           augment_fn: Optional[Callable] = None,
+                           ranks=None) -> Callable[..., Dict]:
     """The pacing train step ``(state, batch, generator=None) -> metrics``.
 
     It updates ``state`` in place (see train/state.py) and leaves this
@@ -349,9 +384,13 @@ def make_pacing_train_step(config, steps_per_epoch: int,
     batch (``image/label/scribble`` (N, S, S), ``size`` (N, 2)) and
     ``generator`` a ``torch.Generator`` on the batch's device, from which
     the augmentation draws; it runs under ``torch.no_grad()``.
+
+    ``ranks``: a ``parallel.mesh.RankGroup`` for a data-parallel step (see
+    the module docstring): ``batch`` is then the global batch on every
+    rank, and ``state`` the rank's replica.
     """
     return _make_train_step(config, steps_per_epoch, _pacing_losses,
-                            module_train, augment_fn)
+                            module_train, augment_fn, ranks)
 
 
 @torch.no_grad()
@@ -366,14 +405,15 @@ def eval_logits(model, image):
         model.train(was_training)
 
 
-def make_pacing_eval_step(config):
+def make_pacing_eval_step(config, ranks=None):
     """Validation step ``(state, batch) -> (loss_pce, dice (N, C), logits)``.
 
     Weak forward with the running BN statistics, PCE on the scribbles and
     per-class Dice against the **full** labels (train_chaos.py:369-391).
     With ``sample_valid`` (N,) in the batch, padded samples' targets become
     ``ignored_index`` and add no pixels to the loss.  The model's
-    train/eval mode is restored afterwards.
+    train/eval mode is restored afterwards.  With ``ranks`` the batch is
+    this rank's rows and the loss its share (the global count).
     """
 
     @torch.no_grad()
@@ -382,7 +422,7 @@ def make_pacing_eval_step(config):
         scb_target = _ignore_padded(config, batch["scribble"].argmax(dim=1),
                                     batch.get("sample_valid"))
         loss_pce = partial_cross_entropy_loss(logits, scb_target,
-                                              config.ignored_index)
+                                              config.ignored_index, ranks)
         dice = dice_per_class(F.softmax(logits, dim=1), batch["label"],
                               region_mask=batch.get("region_mask"))
         return loss_pce, dice, logits
@@ -403,7 +443,7 @@ def _ignore_padded(config, target, sample_valid):
 # Upper-bound (fully supervised) steps -- reference upper_bound_chaos.py
 # ---------------------------------------------------------------------------
 
-def _upper_bound_losses(config, model, batch, epoch):
+def _upper_bound_losses(config, model, batch, epoch, ranks=None):
     """Forward and losses of one upper-bound step on the bare model
     (``pacingpseudo_tpu/train/step.py:439-460``, reference
     upper_bound_chaos.py:157-167): CE on the argmax of the one-hot label,
@@ -412,11 +452,11 @@ def _upper_bound_losses(config, model, batch, epoch):
     maximum, as JAX's does), so padding trains as background."""
     logits = model(batch["image"], None, train=True)["segmentation/logits"]
     loss_ce = partial_cross_entropy_loss(logits, batch["label"].argmax(dim=1),
-                                         config.ignored_index)
+                                         config.ignored_index, ranks)
     total = loss_ce
     metrics = {"loss_ce": loss_ce}
     if config.loss_dice:
-        loss_dice = dice_loss_fn(logits, batch["label"])
+        loss_dice = dice_loss_fn(logits, batch["label"], ranks)
         total = total + loss_dice
         metrics["loss_dice"] = loss_dice
     metrics["loss_total"] = total
@@ -425,16 +465,16 @@ def _upper_bound_losses(config, model, batch, epoch):
 
 def make_upper_bound_train_step(config, steps_per_epoch: int,
                                 module_train: bool = True,
-                                augment_fn: Optional[Callable] = None
-                                ) -> Callable[..., Dict]:
+                                augment_fn: Optional[Callable] = None,
+                                ranks=None) -> Callable[..., Dict]:
     """The upper-bound train step ``(state, batch, generator=None) ->
     metrics`` (``loss_ce``, ``loss_dice`` with ``config.loss_dice``,
     ``loss_total``, ``lr``) on a state whose model has no aux path
-    (:func:`create_train_state` of an Upperbound config).  ``module_train``
-    and ``augment_fn`` as in :func:`make_pacing_train_step`; the
+    (:func:`create_train_state` of an Upperbound config).  ``module_train``,
+    ``augment_fn`` and ``ranks`` as in :func:`make_pacing_train_step`; the
     augmentation runs without the strong stream."""
     return _make_train_step(config, steps_per_epoch, _upper_bound_losses,
-                            module_train, augment_fn)
+                            module_train, augment_fn, ranks)
 
 
 def make_upper_bound_eval_step(config):

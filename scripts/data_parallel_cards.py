@@ -1,0 +1,89 @@
+"""Data-parallel training on the cards of one machine.
+
+    python3 scripts/data_parallel_cards.py
+
+On one card this is ``chip_smoke.py``'s ``train (data-parallel)`` phase
+alone (two ranks sharing the card over gloo); with two cards or more the
+phase puts its ranks on ``cuda:0`` and ``cuda:1`` over NCCL and times the
+update on them.  Before it, the single-card eager update of the same
+session (full-width Experiment step, the augmentation inside) is timed: 3
+warm-up and 5 timed updates, each ending in a synchronize.  After it, the
+epoch loop (2 epochs of 20 steps, the pool resident and sharded) on every
+card of the machine, one rank a card.  Prints the cards' names and power
+limits first.  Exits non-zero if a check of the phase fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from pacingpseudo_torch.aug.engine import make_train_augment_fn  # noqa: E402
+from pacingpseudo_torch.ops import _build  # noqa: E402
+from pacingpseudo_torch.train import loop  # noqa: E402
+from pacingpseudo_torch.train.state import create_train_state  # noqa: E402
+from pacingpseudo_torch.train.step import make_pacing_train_step, seed_step  # noqa: E402
+
+
+def single_card_ms(config, raws, dev):
+    """Median ms of 5 eager updates after 3 warm-up ones on one card."""
+    state = create_train_state(config, device=dev, seed=3)
+    step = make_pacing_train_step(config, 100, augment_fn=make_train_augment_fn(
+        *loop._augment_params(config), True))
+    gen = torch.Generator(device=dev)
+    ms = []
+    for i in range(8):
+        seed_step(gen, dev, config.seed, state.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, raws[i % 2], gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[3:])
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: this script measures the cards")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    cards = torch.cuda.device_count()
+    print(f"{smi}\ntorch {torch.__version__}, CUDA {torch.version.cuda}, {cards} card(s)",
+          flush=True)
+    print(f"build: {_build.build()[0]:.2f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as root:
+        raw_batches, _, config = cs.make_raw_pool(root, dev)
+        raws = [next(raw_batches), next(raw_batches)]
+        raw_batches.close()
+        ms = single_card_ms(config, raws, dev)
+        print(f"single card: median eager update {ms:.3f} ms", flush=True)
+        cs._release_memory()
+        loop_root = os.path.join(root, "loop")
+        cs.make_loop_pool(loop_root, config.seed)
+        cs.phase_data_parallel(dev, loop_root, raws, smi, ms)
+        cfg = dataclasses.replace(config, epoch=cs.LOOP_EPOCHS, num_devices=cards,
+                                  device_resident_data="on", ckp_interval=1)
+        run_dir = os.path.join(loop_root, "runs", f"cards{cards}")
+        cs._release_memory()
+        t0 = time.perf_counter()
+        loop.train_driver(cfg, loop_root, run_dir,
+                          device=[torch.device("cuda", i) for i in range(cards)])
+        _, epochs, metrics = cs._loop_epochs(run_dir)
+        print(f"loop on {cards} rank(s): {time.perf_counter() - t0:.1f} s with the ranks' "
+              f"start, epochs (s, slices/s) {epochs}, metrics {metrics}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -30,6 +30,7 @@ THREADS = 256   # kThreads in the source
 SHAPES = [
     (12, 5, 256, 256, True, 132),     # the CHAOS step
     (24, 5, 256, 256, True, 132),
+    (6, 5, 256, 256, True, 132),      # a rank's rows of the step on 2 ranks
     (12, 4, 224, 224, True, 132),     # ACDC
     (12, 2, 224, 224, True, 132),     # LVSC
     (12, 5, 256, 256, True, 114),     # a card with fewer SMs
