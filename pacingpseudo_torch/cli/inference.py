@@ -12,11 +12,17 @@ writes per-slice DSC and HD95 to ``eval_data.npz`` under
 may also name a checkpoint directory or a reference ``.pth`` state_dict.
 
 Every flag of the JAX package's parser, with one stated difference:
-``--gpu`` is the device, as in the port's train CLI, a CUDA index or
-``cpu``, and its default is ``0``, not the ignored ``1`` of JAX (a card
-with one device has no ``cuda:1``).  ``--spatial_shards`` above 1 (height
-sharded over several devices) is refused: the multi-card path is
-``ROADMAP.md`` Queue 1 item 8.
+``--gpu`` names the devices, as in the port's train CLI, CUDA indices
+(``0``, ``0,1``) or ``cpu``, and its default is ``0``, not the ignored ``1``
+of JAX (a card with one device has no ``cuda:1``); ``--num_devices`` takes
+the first k of them (0: all; on the CPU, k gloo ranks).  With
+``--spatial_shards s`` above 1 the forward is height-sharded over ``n // s``
+data x ``s`` space ranks of the ``n`` devices, as JAX shards it over its
+devices (``evals/infer.py``), and one device runs otherwise:
+
+    python -m pacingpseudo_torch.cli.inference --gpu 0,1 --spatial_shards 2 ...
+    python -m pacingpseudo_torch.cli.inference --gpu cpu --num_devices 4 \\
+        --spatial_shards 2 ...
 """
 from __future__ import annotations
 
@@ -28,14 +34,17 @@ import sys
 
 import numpy as np
 
-from pacingpseudo_torch.cli.train import device_from_gpu
+from pacingpseudo_torch.cli.train import devices_from_gpu
 from pacingpseudo_torch.train.checkpoint import MODEL_FILE, resolve_checkpoint_path
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="pacingpseudo_torch inference")
     p.add_argument("--gpu", type=str, default="0",
-                   help="the device: a CUDA index ('0' -> cuda:0) or 'cpu'")
+                   help="the devices: CUDA indices ('0' -> cuda:0, '0,1' -> "
+                        "cuda:0 and cuda:1) or 'cpu'")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="the first k devices of --gpu (0 = all; on the CPU, k ranks)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--root", type=str, default="./outputs")
     p.add_argument("--session", type=str, default="Inference")
@@ -58,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="1 only: sharding over several devices is not ported")
+                   help="shard activation height over a 'space' axis of this "
+                        "many ranks (devices split as data x space; "
+                        "parallel/spatial.py); 1 = one device")
     p.add_argument("--patient_regex", type=str, default="",
                    help="regex whose first capture group maps a slice uid to "
                         "its patient id for the per-patient aggregation "
@@ -84,10 +95,7 @@ def resolve(checkpoint_file: str, dataset: str, best: bool) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.spatial_shards > 1:
-        raise SystemExit("--spatial_shards > 1 shards inference over several devices, "
-                         "which is not ported (ROADMAP.md Queue 1 item 8)")
-    device = device_from_gpu(args.gpu)
+    devices = devices_from_gpu(args.gpu)
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -118,7 +126,7 @@ def main(argv=None):
         compute_dtype=args.compute_dtype, num_workers=args.num_workers,
         patient_regex=args.patient_regex,
         save_pred=os.path.join(run_dir, "preds") if args.save_pred else "",
-        device=device)
+        device=devices, spatial_shards=args.spatial_shards, num_devices=args.num_devices)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@ README tables):
 Every flag of ``cli.train`` plus ``--folds``, ``--sweep_out`` and
 ``--patient_regex``; ``--gpu`` names the devices as in ``cli.train``
 (``0`` -> ``cuda:0``, the default; ``0,1`` trains each fold on two cards;
-``cpu``), and inference runs on the first of them.  Each finished fold leaves ``fold{N}.json``, stamped
+``cpu``), ``--num_devices`` and ``--spatial_shards`` split them for
+training as there, and inference runs height-sharded over them with
+``--spatial_shards`` above 1 (``evals/infer.py``), else on the first.  Each finished fold leaves ``fold{N}.json``, stamped
 with :func:`_config_hash`, and a rerun with the same hash reads it instead
 of training again.  Writes ``sweep_summary.json`` and a README-style
 ``sweep_table.md`` with per-fold and overall DSC / HD95.  The JAX
@@ -128,8 +130,9 @@ def main(argv=None):
                 max_ch=args.max_ch, output_stride=args.output_stride,
                 is_stride_conv=args.is_stride_conv,
                 is_trans_conv=args.is_trans_conv),
-            compute_dtype=args.compute_dtype,
-            patient_regex=args.patient_regex, device=devices[0])
+            compute_dtype=args.compute_dtype, patient_regex=args.patient_regex,
+            device=devices, spatial_shards=args.spatial_shards,
+            num_devices=args.num_devices)
         results[fold] = {"_config_hash": cfg_hash,
                          "dice": res["dice"], "hd95": res["hd95"],
                          "dice_per_patient": res["dice_per_patient"],

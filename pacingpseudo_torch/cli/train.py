@@ -12,10 +12,14 @@ default; ``0,1`` -> ``cuda:0`` and ``cuda:1``, as the reference's
 ``--gpu`` set ``CUDA_VISIBLE_DEVICES``) or ``cpu``.  There is no fallback:
 a listed card that does not exist fails.  ``--num_devices`` takes the
 first k of them (0: all; on the CPU, k gloo ranks) and ``--spatial_shards``
-is honoured as in the JAX package or refused: several devices train as
-one data mesh (``train/loop.py``), and a split that needs height sharding
-(``--spatial_shards`` above 1, or an AUTO split with a space axis) exits
-with a message.  ``--steps_per_dispatch (updates a dispatch: on a card with
+splits them as the JAX package does: 1 a data mesh, ``s`` above 1 ``n // s``
+data x ``s`` space ranks (activation heights sharded over the space axis,
+``parallel/spatial.py``), 0 (the default) JAX's AUTO split, which adds a
+space axis where a data mesh would idle devices (batch 12 on 8 cards:
+data 4 x space 2).  ``--gpu cpu --num_devices 4 --spatial_shards 2`` trains
+on 2 x 2 gloo ranks; a split that cannot run (more space shards than the
+image has rows at its coarsest level) exits with a message naming the
+sizes.  ``--steps_per_dispatch (updates a dispatch: on a card with
 more than 1, replays of the step captured as a CUDA graph) and
 ``--device_resident_data`` (``auto``/``on``/``off``: the training pool on
 the device) choose how the loop feeds the step (``train/loop.py``), and
@@ -163,9 +167,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", type=int, default=0,
                    help="the first k devices of --gpu (0 = all; on the CPU, k ranks)")
     p.add_argument("--spatial_shards", type=int, default=0,
-                   help="shard activation height over a 'space' mesh axis "
-                        "(devices split as data x space); 0 = auto-factor "
-                        "so all devices carry load at the given batch")
+                   help="shard activation height over a 'space' axis of this many "
+                        "ranks (devices split as data x space; parallel/spatial.py); "
+                        "0 = auto-factor so all devices carry load at the given batch")
     p.add_argument("--aug_image_interp", type=str, default="bicubic",
                    choices=["bicubic", "bilinear"],
                    help="fused-warp image kernel: bicubic matches the "
@@ -301,15 +305,6 @@ def config_from_args(args) -> ExperimentConfig:
         resume=args.resume,
         profile_dir=args.profile_dir,
     )
-
-
-def device_from_gpu(gpu: str) -> torch.device:
-    """``--gpu`` of a one-device command (inference): ``cpu``, or one CUDA
-    index (``"0"`` -> ``cuda:0``)."""
-    devices = devices_from_gpu(gpu)
-    if len(devices) != 1:
-        raise SystemExit(f"--gpu takes one CUDA index or 'cpu' here, got {gpu!r}")
-    return devices[0]
 
 
 def devices_from_gpu(gpu: str) -> List[torch.device]:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 
-def dice_per_class(probs, target_one_hot, eps=1e-5, region_mask=None):
+def dice_per_class(probs, target_one_hot, eps=1e-5, region_mask=None, ranks=None):
     """Validation Dice, ``(N, C)`` float32.
 
     Args:
@@ -27,6 +27,9 @@ def dice_per_class(probs, target_one_hot, eps=1e-5, region_mask=None):
       target_one_hot: ``(N, C, H, W)`` one-hot labels.
       region_mask: optional ``(N, 1, H, W)`` live-region mask: the metric
         covers the unpadded part of a padded canvas only.
+      ranks: optional rank group; on a height shard the per-sample sums are
+        summed over the space group before the ratio, so every space rank
+        of a sample returns the sample's Dice.
     """
     num_classes = probs.shape[1]
     pred = F.one_hot(probs.argmax(dim=1), num_classes).permute(0, 3, 1, 2).float()
@@ -37,6 +40,8 @@ def dice_per_class(probs, target_one_hot, eps=1e-5, region_mask=None):
     inter = (pred * t).sum(dim=(2, 3))
     p_sum = pred.sum(dim=(2, 3))
     t_sum = t.sum(dim=(2, 3))
+    if ranks is not None and ranks.n_space > 1:
+        inter, p_sum, t_sum = ranks.sum(torch.stack([inter, p_sum, t_sum]), "space").unbind()
     dice = 2.0 * inter / (p_sum + t_sum + eps)
     both_empty = (p_sum == 0) & (t_sum == 0)
     return torch.where(both_empty, torch.full_like(dice, float("nan")), dice)

@@ -17,17 +17,24 @@ host buffers without a sync per slice: the copy of batch ``i`` runs while
 batch ``i + 1`` is launched, and only then does the host wait for it.
 HD95 runs in a thread pool fed in slice order, with at most
 ``max_backlog`` slices waiting (LVSC has ~29k slices).
+
+With ``spatial_shards`` above 1 the forward is height-sharded over ranks
+(``parallel/spatial.py``): one spawned process a device, every rank reads
+every batch, runs its rows and heights, and the hard predictions are
+gathered whole, on which rank 0 alone computes and writes the metrics.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import logging
 import os
 import re
+import sys
 import time
 import warnings
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,7 @@ from pacingpseudo_torch.data.splits import read_test_split
 from pacingpseudo_torch.evals.dice import compute_dice_hard
 from pacingpseudo_torch.evals.hd import compute_95hd
 from pacingpseudo_torch.models.unet import UNet
+from pacingpseudo_torch.parallel import mesh, spatial
 from pacingpseudo_torch.train.checkpoint import (restore_batch_stats, restore_params,
                                                  saved_is_siamese)
 from pacingpseudo_torch.utils import AvgMeter
@@ -102,20 +110,107 @@ def run_inference(dataset: str, fold: int, checkpoint_path: str,
                   model_kwargs: Dict = None, compute_dtype: str = "bfloat16",
                   num_workers: int = 4, patient_regex: str = "",
                   max_backlog: int = 4096, save_pred: str = "",
-                  device="cuda"):
+                  device="cuda", spatial_shards: int = 1, num_devices: int = 0):
     """See the module docstring.  ``save_pred``: a directory to which each
     slice's hard prediction (uint8, cropped to its extent) goes as
     ``<uid>.npz`` (key ``pred``) as it arrives.  ``device`` defaults to the
-    card; the CPU runs only when asked for."""
+    card; the CPU runs only when asked for.
+
+    ``spatial_shards`` above 1 shards the forward over the devices of
+    ``device`` (a list of cards, or the CPU with ``num_devices`` gloo ranks;
+    ``num_devices`` takes the first k, 0 all) as JAX does
+    (``pacingpseudo_tpu/evals/infer.py:126-150``): ``n // s`` data x ``s``
+    space ranks, the space axis clamped to the devices.  Rank 0 gathers the
+    hard predictions and computes the metrics on the host, so
+    ``eval_data.npz`` has the single-device layout."""
+    devices = mesh.resolve_devices(device, num_devices)
+    spec = DATASETS[dataset]
+    logging.info("Number of classes: %d", spec.num_classes)
+    logging.info("Spacing: %s", (spec.spacing,))
+    args = (dataset, fold, checkpoint_path, data_root, run_dir, batch_size, model_kwargs,
+            compute_dtype, num_workers, patient_regex, max_backlog, save_pred)
+    n_space = max(1, int(spatial_shards))
+    if n_space > 1 and len(devices) // n_space < 1:
+        logging.info("clamping spatial_shards %d -> %d (devices)", n_space, len(devices))
+        n_space = len(devices)
+    if n_space == 1:
+        return _run(*args, devices[0])
+    n_data = max(len(devices) // n_space, 1)
+    devices = devices[:n_data * n_space]
+    logging.info("inference mesh: data=%d x space=%d, ranks on %s over %s", n_data, n_space,
+                 ", ".join(map(str, devices)), mesh.backend_for(devices))
+    tag = f"{os.getpid()}-{time.time_ns()}"
+    store = os.path.join(run_dir, f".ranks-{tag}")
+    result = os.path.join(run_dir, f"result-{tag}.pt")
+    log_files = [h.baseFilename for h in logging.getLogger().handlers
+                 if isinstance(h, logging.FileHandler)]
+    threads = max(1, torch.get_num_threads() // len(devices))
+    try:
+        mesh.spawn_ranks(_rank_main, len(devices),
+                         (devices, n_space, store, threads, log_files, result, args))
+        return torch.load(result, weights_only=False)
+    finally:
+        for path in (store, result):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def _rank_main(rank: int, devices, n_space: int, store: str, threads: int, log_files,
+               result: str, args: tuple) -> None:
+    """One rank of a height-sharded inference (a spawned process): rank 0
+    logs to the caller's log files and saves the result to ``result``."""
+    if devices[rank].type == "cpu":
+        torch.set_num_threads(threads)
+    ranks = mesh.init_rank_group(rank, devices, store, n_space)
+    if rank == 0:
+        for path in log_files:
+            handler = logging.FileHandler(path)
+            handler.setFormatter(logging.Formatter("[%(asctime)s.%(msecs)03d] %(message)s",
+                                                  "%H:%M:%S"))
+            logging.getLogger().addHandler(handler)
+        logging.getLogger().addHandler(logging.StreamHandler(sys.stdout))
+        logging.getLogger().setLevel(logging.INFO)
+    out = _run(*args, devices[rank], ranks)
+    if rank == 0:
+        torch.save(out, result)
+    mesh.close_rank_group(ranks)
+
+
+def _sharded_forward(model: UNet, ranks: mesh.RankGroup):
+    """``predict(image_f16, size) -> (N, S, S) uint8`` of a whole batch on
+    every rank: each rank runs its rows (the batch padded to a multiple of
+    the data axis by repeating its last slice) on its heights
+    (``spatial.spatial_forward``), and the predictions come back whole."""
+    fwd = spatial.spatial_forward(model, ranks)
+
+    def predict(image_f16, size):
+        n = image_f16.shape[0]
+        pad = (-n) % ranks.n_data
+        if pad:
+            image_f16 = torch.cat([image_f16, image_f16[-1:].expand(pad, -1, -1)])
+            size = torch.cat([size, size[-1:].expand(pad, -1)])
+        logits = fwd(eval_preprocess_image(ranks.local_rows(image_f16), ranks.local_rows(size)))
+        return ranks.gather_rows(logits.argmax(dim=1).to(torch.uint8))[:n]
+
+    return predict
+
+
+def _run(dataset, fold, checkpoint_path, data_root, run_dir, batch_size, model_kwargs,
+         compute_dtype, num_workers, patient_regex, max_backlog, save_pred, device,
+         ranks: Optional[mesh.RankGroup] = None):
+    """:func:`run_inference` on ``device``, alone or as one rank of
+    ``ranks`` (every rank predicts every batch; rank 0 alone computes the
+    metrics, writes, and returns the result; the others return None)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"no CUDA device for {device}: pass the CPU explicitly")
     spec = DATASETS[dataset]
     num_classes, spacing = spec.num_classes, spec.spacing
-    logging.info("Number of classes: %d", num_classes)
-    logging.info("Spacing: %s", (spacing,))
+    lead = ranks is None or ranks.rank == 0
     model = load_inference_model(checkpoint_path, num_classes, model_kwargs,
                                  compute_dtype, device)
+    predict = (functools.partial(forward_hard, model) if ranks is None
+               else _sharded_forward(model, ranks))
 
     ds = SliceDataset(read_test_split(data_root, dataset, fold), num_classes,
                       spec.ignored_index)
@@ -184,7 +279,9 @@ def run_inference(dataset: str, fold: int, checkpoint_path: str,
         for b, raw in enumerate(loader):
             image = torch.from_numpy(raw["image"].astype(np.float16)).to(device)
             size = torch.from_numpy(raw["size"]).to(device)
-            preds = forward_hard(model, image, size)
+            preds = predict(image, size)
+            if not lead:
+                continue
             host = buffers[b % 2][:preds.shape[0]]
             host.copy_(preds, non_blocking=on_card)
             done = None
@@ -199,6 +296,8 @@ def run_inference(dataset: str, fold: int, checkpoint_path: str,
         while pending:
             collect(pending.popleft())
     toc = time.time()
+    if not lead:
+        return None
 
     dicearr_np = np.asarray(dicearr, np.float32)
     hd95arr_np = np.asarray(hd95arr, np.float32)

@@ -16,12 +16,16 @@ Data-parallel training (``parallel/mesh.py``): with a rank group
 (``ranks``) a loss is this rank's sum over the **global** count (the
 denominators are summed over the ranks, outside autograd), so the ranks'
 losses and gradients add up to the single-device loss and gradient on the
-global batch.
+global batch.  On a height-sharded grid a rank holds part of each of its
+samples: the pixel sums and counts are the rank's part of the global ones
+as before, and the Dice ratio sums its terms over the space group first.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from pacingpseudo_torch.parallel.mesh import sum_over_ranks
 
 _EPS_MASK = 1e-8
 
@@ -33,10 +37,10 @@ def _global(count, ranks):
 
 def _mean(loss, ranks):
     """The plain mean; with ``ranks``, this rank's sum over the global
-    element count (the ranks hold equal shares of the batch)."""
+    element count, summed over the ranks (height shards may be unequal)."""
     if ranks is None:
         return loss.mean()
-    return loss.sum() / (loss.numel() * ranks.world)
+    return loss.sum() / ranks.sum(loss.new_tensor(float(loss.numel())))
 
 
 def _masked_mean(loss, valid_mask, ranks=None):
@@ -143,14 +147,19 @@ def dice_loss_fn(logits, target_one_hot, ranks=None):
     Args:
       logits: ``(N, C, H, W)``.
       target_one_hot: ``(N, C, H, W)``.
-      ranks: optional rank group (the mean over the global batch).
+      ranks: optional rank group (the mean over the global batch).  On a
+        height shard the sums over the image are summed over the space
+        group before the ratio; the ``n_space`` ranks that share a sample
+        each count its ratio, and so does the count of the mean.
     """
     eps = 1e-5
     p = F.softmax(logits.float(), dim=1)
     t = target_one_hot.float()
-    inter = 2.0 * (p * t).sum(dim=(2, 3))                      # (N, C)
-    denom = p.sum(dim=(2, 3)) + t.sum(dim=(2, 3)) + eps
-    return -_mean(inter / denom, ranks)
+    sums = torch.stack([(p * t).sum(dim=(2, 3)), p.sum(dim=(2, 3)),
+                        t.sum(dim=(2, 3))])                    # (3, N, C)
+    if ranks is not None and ranks.n_space > 1:
+        sums = sum_over_ranks(sums, ranks, "space")
+    return -_mean(2.0 * sums[0] / (sums[1] + sums[2] + eps), ranks)
 
 
 def multi_label_soft_margin_loss(logits, target):

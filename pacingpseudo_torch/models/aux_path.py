@@ -20,9 +20,10 @@ from the pure function :func:`memory_update`.  Reference quirks kept:
   aux_path_memory.py:92-95).
 
 In data-parallel training the step folds the gathered global batch into
-the bank (``train/step.py``), and :class:`Dropout2d` draws the global
-batch's channel mask on every rank and keeps the rank's rows, so both are
-the single-device functions.
+the bank (``train/step.py``: rows over the data axis, heights over the
+space axis), and :class:`Dropout2d` draws the global batch's channel mask
+on every rank and keeps the rank's rows, so both are the single-device
+functions.
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ from pacingpseudo_torch.train.schedules import memory_momentum
 
 class Dropout2d(nn.Dropout2d):
     """``nn.Dropout2d`` that, with a rank group (``ranks``), draws the
-    ``(N·W, C, 1, 1)`` mask of the global batch as ``F.dropout2d`` draws
-    it (``bernoulli_(1 - p)`` in the input's dtype, divided by ``1 - p``)
-    and applies this rank's rows."""
+    ``(N·n_data, C, 1, 1)`` mask of the global batch as ``F.dropout2d``
+    draws it (``bernoulli_(1 - p)`` in the input's dtype, divided by ``1 -
+    p``) and applies the rows of this rank's data index: every height
+    shard of a sample takes the same mask."""
 
     def __init__(self, p: float = 0.5):
         super().__init__(p)
@@ -50,7 +52,7 @@ class Dropout2d(nn.Dropout2d):
     def forward(self, x):
         if self.ranks is None or not self.training or self.p == 0.0:
             return super().forward(x)
-        noise = x.new_empty((x.shape[0] * self.ranks.world, x.shape[1], 1, 1))
+        noise = x.new_empty((x.shape[0] * self.ranks.n_data, x.shape[1], 1, 1))
         noise.bernoulli_(1.0 - self.p).div_(1.0 - self.p)
         return x * self.ranks.local_rows(noise)
 
@@ -61,7 +63,9 @@ class AuxPath(nn.Module):
     ``forward`` concatenates ``feat_stage`` of the end-points dict (default
     ``encoder/stage6, encoder/stage5``), projects to ``hid_ch`` (conv in
     ``dtype``, BN and LeakyReLU in float32) and returns
-    ``(aux_features, aux logits resized to out_hw)``, both float32.
+    ``(aux_features, aux logits resized to out_hw)``, both float32.  On a
+    height shard (``shard``) ``out_hw`` is the shard's and the resize the
+    sharded one.
     """
 
     def __init__(self, num_classes: int, in_ch: int,
@@ -84,12 +88,13 @@ class AuxPath(nn.Module):
         )
         self.register_buffer("memory_bank", init_memory_bank(
             num_classes, hid_ch, device)[:, :, None, None])
+        self.shard = None
 
     def forward(self, end_points, out_hw):
         feat = torch.cat([end_points[s] for s in self.feat_stage], dim=1)
         aux_features = self.layer_bottleneck(feat.to(self.dtype))
         logits = bilinear_resize_align_corners(self.fc_cls(aux_features),
-                                               out_hw[0], out_hw[1])
+                                               out_hw[0], out_hw[1], self.shard)
         return aux_features, logits.float()
 
     def classify_bank(self, bank):

@@ -21,7 +21,8 @@ With a rank group (``ranks``, set by ``parallel.mesh.attach_ranks``) the
 training statistics are the **global** batch's (sync BN, as the JAX
 package's sharded step computes them): each rank's per-channel sum, sum of
 squares and count are summed over the ranks by
-``parallel.mesh.sum_over_ranks``, whose backward sums the statistics'
+``parallel.mesh.sum_over_ranks`` (height shards may be unequal: the count
+is summed, not taken as the rank's times the world), whose backward sums the statistics'
 gradients (the channel sums Σdy and Σdy·x̂ of the BN backward) over the
 ranks in turn.  The running statistics then update identically on every
 rank.
@@ -61,10 +62,11 @@ class BatchNorm2d(nn.Module):
                 mean = x32.mean(dim=(0, 2, 3))
                 mean_sq = x32.square().mean(dim=(0, 2, 3))
             else:
+                count = x32.new_full((x32.shape[1],), x32.numel() // x32.shape[1])
                 sums = sum_over_ranks(torch.stack([x32.sum(dim=(0, 2, 3)),
-                                                   x32.square().sum(dim=(0, 2, 3))]),
+                                                   x32.square().sum(dim=(0, 2, 3)), count]),
                                       self.ranks)
-                mean, mean_sq = sums / (x32.numel() // x32.shape[1] * self.ranks.world)
+                mean, mean_sq = sums[:2] / sums[2]
             var = (mean_sq - mean.square()).clamp_min(0.0)
             self.update_running_stats(mean, var)
         else:

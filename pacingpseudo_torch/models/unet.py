@@ -35,13 +35,17 @@ from pacingpseudo_torch.models.norm import BatchNorm2d
 from pacingpseudo_torch.ops.fused_convbn import (conv_bn_lrelu_train, fusable,
                                                  get_conv_impl)
 from pacingpseudo_torch.ops.resize import upsample2x_align_corners
+from pacingpseudo_torch.parallel import spatial
 
 NEGATIVE_SLOPE = 1e-2   # LeakyReLU of every ConvLayer (reference unet.py:193)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype``: input, weight and
-    bias are cast, the parameters stay float32."""
+    bias are cast, the parameters stay float32.  On a height shard
+    (``shard``, set by ``parallel.mesh.attach_ranks``) a padded conv takes
+    its rows beyond the shard's edge from the neighbouring shards
+    (``parallel.spatial.conv2d``) and pads only the width with zeros."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  dilation=1, bias=True, compute_dtype=torch.float32,
@@ -50,10 +54,14 @@ class Conv2d(nn.Conv2d):
                          padding=padding, dilation=dilation, bias=bias,
                          device=device, dtype=torch.float32)
         self.compute_dtype = compute_dtype
+        self.shard = None
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.shard is not None:
+            return spatial.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.dilation, self.shard)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
                         self.padding, self.dilation)
 
@@ -172,7 +180,9 @@ class DecBlock(nn.Module):
 
     ``up_factor`` 1 skips the upsample (the stride-1 stages of output
     stride 8/16); the transposed-conv variant maps ``in_ch`` to
-    ``skip_ch`` with a ``up_factor`` kernel and stride.
+    ``skip_ch`` with a ``up_factor`` kernel and stride.  On a height shard
+    (``shard``) the upsample is the sharded resize of ``ops/resize.py``;
+    the transposed conv, whose kernel equals its stride, stays local.
     """
 
     def __init__(self, in_ch, skip_ch, out_ch, up_factor=2,
@@ -187,12 +197,13 @@ class DecBlock(nn.Module):
             self.up_samp = None
         self.conv_block = DoubleConv(in_ch + skip_ch, out_ch, dtype=dtype,
                                      device=device)
+        self.shard = None
 
     def forward(self, x, skip):
         if self.up_samp is not None:
             x = self.up_samp(x)
         elif self.up_factor != 1:
-            x = upsample2x_align_corners(x)
+            x = upsample2x_align_corners(x, self.shard)
         return self.conv_block(torch.cat([x, skip.to(x.dtype)], dim=1))
 
 
@@ -219,6 +230,7 @@ class UNet(nn.Module):
                           16: (((True, 1), (False, 2)), 1, 2),
                           8: (((False, 2), (False, 4)), 1, 1)}[output_stride]
         self.dtype = dtype
+        self.output_stride = output_stride
         self.elab_end_points = elab_end_points
         kw = dict(dtype=dtype, device=device)
         enc = dict(is_stride_conv=is_stride_conv, **kw)

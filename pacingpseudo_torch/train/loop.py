@@ -55,21 +55,24 @@ as JAX traces it.
 Several devices (JAX's ``loop.py:254-285,319-364``): ``device`` may list
 devices (``--gpu 0,1``; on the CPU ``config.num_devices`` ranks share it),
 ``config.num_devices`` takes the first k of them (0: all), and
-``parallel.mesh.plan_data_parallel`` splits them as JAX does; a split that
-needs a ``space`` axis (height sharding, not ported) exits with a message.
-A data mesh of ``W > 1`` runs one process a rank (``spawn``; rendezvous
-through a ``FileStore`` in the run directory; NCCL across cards, gloo on
-the CPU or on a shared card), each with its replica of the state and the
-rows of each global batch that are its own (``train/step.py``).  The
-training pool is sharded over the ranks (``parallel.mesh.
-stage_resident_pool``) and its budget is ``W x 6 GiB``; validation splits
-each block's rows over the ranks and sums the results.  Steps run eagerly
-(no CUDA graph), and the fused ConvLayer is off for the run on every rank,
-as in JAX, because its kernels' BN statistics are the rank's own.  Rank 0
-alone writes ``log.txt``, ``config.json``, ``valdice.npz``, TensorBoard and
-the checkpoints, whose layout is the single-device one: a W-rank
-checkpoint resumes in a single-device run and the other way round.  Not
-ported (``ROADMAP.md``): height sharding (``parallel/spatial.py``).
+``parallel.mesh.plan_data_parallel`` splits them as JAX does into ``n_data
+x n_space`` (``--spatial_shards``; 0 is JAX's AUTO split, which puts the
+devices that a pure data mesh would idle on a ``space`` axis).  A split of
+``W > 1`` ranks runs one process a rank (``spawn``; rendezvous through a
+``FileStore`` in the run directory; NCCL across cards, gloo on the CPU or
+on a shared card), each with its replica of the state and its block of
+each global batch: the rows of its data index and, with a space axis, the
+heights of its space index (``train/step.py``, ``parallel/spatial.py``).
+The training pool is sharded over the data axis and replicated across the
+space axis (``parallel.mesh.stage_resident_pool``), its budget ``n_data x
+6 GiB``; validation splits each block's rows over the data axis and its
+heights over the space axis and sums the results, each sample counted
+once.  Steps run eagerly (no CUDA graph), and the fused ConvLayer is off
+for the run on every rank, as in JAX, because its kernels' BN statistics
+are the rank's own.  Rank 0 alone writes ``log.txt``, ``config.json``,
+``valdice.npz``, TensorBoard and the checkpoints, whose layout is the
+single-device one: a checkpoint of any split resumes in a single-device run
+and the other way round.
 """
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,7 +98,8 @@ from pacingpseudo_torch.data.resident import (gather, pool_bytes, stage_pool,
 from pacingpseudo_torch.data.splits import read_fold_split
 from pacingpseudo_torch.evals.dice import dice_per_class
 from pacingpseudo_torch.losses import partial_cross_entropy_loss
-from pacingpseudo_torch.parallel import mesh
+from pacingpseudo_torch.parallel import mesh, spatial
+from pacingpseudo_torch.parallel.mesh import resolve_devices
 from pacingpseudo_torch.train import checkpoint as ckpt_lib
 from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.state import TrainState, create_train_state
@@ -295,12 +299,16 @@ def make_resident_eval_fn(config: ExperimentConfig, ranks: Optional[mesh.RankGro
     canvas padding counts as background; the padded duplicate samples are
     ignored.
 
-    With ``ranks`` each rank evaluates its rows of every block (the loss
-    as its share of the block's global count) and the sums are summed over
-    the ranks at the end: every rank returns the single-device sums."""
+    With ``ranks`` each rank evaluates its block of every index block (its
+    rows, its heights on a space axis; the loss as its share of the block's
+    global count) and the sums are summed over the ranks at the end: every
+    rank returns the single-device sums.  A sample's Dice and validity come
+    from the first rank of its space group alone, so that each sample
+    counts once."""
     eval_step = make_pacing_eval_step(config, ranks)
     num_classes = config.num_classes
     upper_bound = config.session == "Upperbound"
+    counts = ranks is None or ranks.space_index == 0
 
     @torch.no_grad()
     def eval_all(state: TrainState, pool: ValPool):
@@ -316,22 +324,29 @@ def make_resident_eval_fn(config: ExperimentConfig, ranks: Optional[mesh.RankGro
             raw = {k: v[idx] for k, v in pool.raw.items()}
             batch = eval_preprocess_batch(raw, num_classes)
             batch["sample_valid"] = valid
+            batch["raw_label"] = raw["label"]
+            shard = None
+            if ranks is not None:
+                batch, shard = spatial.shard_batch(batch, ranks, config.output_stride,
+                                                   rows=False)
+                mesh.attach_ranks(state.model, ranks, shard)
             if upper_bound:
                 logits = eval_logits(state.model, batch["image"])
-                label = raw["label"].long()
+                label = batch["raw_label"].long()
                 target = torch.where(label < num_classes, label, 0)
                 target = torch.where(valid[:, None, None], target, config.ignored_index)
                 loss = partial_cross_entropy_loss(logits, target, config.ignored_index,
                                                   ranks)
                 dice = dice_per_class(torch.softmax(logits, dim=1), batch["label"],
-                                      region_mask=batch["region_mask"])
+                                      region_mask=batch["region_mask"], ranks=ranks)
             else:
-                loss, dice, _ = eval_step(state, batch)
-            ok = ~torch.isnan(dice) & valid[:, None]
+                loss, dice, _ = eval_step(state, batch, shard)
             acc["loss_sum"] += loss.double() * n_real
-            acc["n_sum"] += valid.sum().double()
-            acc["dice_sum"] += torch.where(ok, dice, 0.0).double().sum(0)
-            acc["dice_cnt"] += ok.double().sum(0)
+            if counts:
+                ok = ~torch.isnan(dice) & valid[:, None]
+                acc["n_sum"] += valid.sum().double()
+                acc["dice_sum"] += torch.where(ok, dice, 0.0).double().sum(0)
+                acc["dice_cnt"] += ok.double().sum(0)
         if ranks is not None:
             flat = ranks.sum_(torch.cat([v.reshape(-1) for v in acc.values()]))
             acc = dict(zip(acc, flat.split([v.numel() for v in acc.values()])))
@@ -359,36 +374,6 @@ def _augment_params(config: ExperimentConfig):
     return base, strong_params_for(config.augmentations, config.strength)
 
 
-def resolve_devices(device: Union[str, torch.device, Sequence], num_devices: int = 0
-                    ) -> List[torch.device]:
-    """The devices of a run: ``device`` (one device, or a list of cards), the
-    first ``num_devices`` of them (0: all).  The CPU is one device that
-    ``num_devices`` ranks may share.  A card that does not exist raises;
-    there is no CPU fallback, and a run never quietly gets fewer devices
-    than it asks for."""
-    listed = ([torch.device(device)] if isinstance(device, (str, torch.device))
-              else [torch.device(d) for d in device])
-    if not listed:
-        raise ValueError("no device given")
-    if all(d.type == "cpu" for d in listed):
-        return [torch.device("cpu")] * max(1, int(num_devices))
-    for i, d in enumerate(listed):
-        if d.type != "cuda":
-            raise ValueError(f"a run on cards lists {d}: the devices are "
-                             f"{', '.join(map(str, listed))}")
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"no CUDA device for {d}: pass the CPU explicitly")
-        index = torch.cuda.current_device() if d.index is None else d.index
-        if index >= torch.cuda.device_count():
-            raise RuntimeError(f"{d} does not exist: this machine has "
-                               f"{torch.cuda.device_count()} card(s)")
-        listed[i] = torch.device("cuda", index)
-    if num_devices > len(listed):
-        raise SystemExit(f"--num_devices {num_devices}: only {len(listed)} card(s) "
-                         f"listed ({', '.join(map(str, listed))})")
-    return listed[:num_devices or len(listed)]
-
-
 def train_driver(config: ExperimentConfig, data_root: str,
                  run_dir: Optional[str] = None,
                  max_steps_per_epoch: Optional[int] = None,
@@ -404,11 +389,16 @@ def train_driver(config: ExperimentConfig, data_root: str,
     simulator for resume-equivalence checks.
     """
     devices = resolve_devices(device, config.num_devices)
-    world, split = mesh.plan_data_parallel(len(devices), config.batch_size,
-                                           int(config.spatial_shards))
+    n_data, n_space, split = mesh.plan_data_parallel(len(devices), config.batch_size,
+                                                     int(config.spatial_shards))
+    world = n_data * n_space
     if world == 1:
         return _train_driver(config, data_root, run_dir, max_steps_per_epoch,
-                             stop_after_epoch, devices[0])[0]
+                             stop_after_epoch, devices[0], split=split)[0]
+    if n_space > 1:
+        # A split that cannot run exits here, before any rank starts.
+        spatial.check_split(_augment_params(config)[0].crop_size[0], config.output_stride,
+                            n_space)
     if run_dir is None:
         run_dir = make_run_dir(config)
     os.makedirs(run_dir, exist_ok=True)
@@ -418,7 +408,7 @@ def train_driver(config: ExperimentConfig, data_root: str,
     store = os.path.join(run_dir, f".ranks-{os.getpid()}-{time.time_ns()}")
     threads = max(1, torch.get_num_threads() // world)
     try:
-        mesh.spawn_ranks(_rank_main, world, (devices, split, store, threads, config,
+        mesh.spawn_ranks(_rank_main, world, (devices, n_space, split, store, threads, config,
                                              data_root, run_dir, max_steps_per_epoch,
                                              stop_after_epoch))
     finally:
@@ -427,13 +417,13 @@ def train_driver(config: ExperimentConfig, data_root: str,
     return run_dir
 
 
-def _rank_main(rank: int, devices, split: str, store: str, threads: int,
+def _rank_main(rank: int, devices, n_space: int, split: str, store: str, threads: int,
                config: ExperimentConfig, data_root: str, run_dir: str,
                max_steps_per_epoch, stop_after_epoch) -> None:
-    """One rank of a data-parallel run (a spawned process)."""
+    """One rank of a run over several devices (a spawned process)."""
     if devices[rank].type == "cpu":
         torch.set_num_threads(threads)
-    ranks = mesh.init_rank_group(rank, devices, store)
+    ranks = mesh.init_rank_group(rank, devices, store, n_space)
     # The fused ConvLayer's kernels would take the rank's own BN statistics:
     # a layer whose BatchNorm has ranks takes the unfused path
     # (``ConvLayer.is_fused``), in every rank whatever the conv impl.
@@ -449,7 +439,8 @@ def _train_driver(config: ExperimentConfig, data_root: str,
                   device="cuda", ranks: Optional[mesh.RankGroup] = None,
                   split: str = "one device") -> Tuple[str, TrainState]:
     """:func:`train_driver` on one device, or as one rank of ``ranks``;
-    returns ``(run_dir, final train state)``."""
+    returns ``(run_dir, final train state)``.  ``split``: what the device
+    split decided, for the log."""
     config.validate()
     upper_bound = config.session == "Upperbound"
     device = torch.device(device)
@@ -460,7 +451,7 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             device = torch.device("cuda", torch.cuda.current_device())
     do_strong = config.do_decoder_consistency and not upper_bound
     lead = ranks is None or ranks.rank == 0      # writes the run's files
-    world = 1 if ranks is None else ranks.world
+    n_data = 1 if ranks is None else ranks.n_data
 
     if run_dir is None:
         run_dir = make_run_dir(config)
@@ -469,7 +460,9 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         setup_logging(run_dir)
         dump_config(run_dir, config)
     logging.info("config: %s", json.dumps(dataclasses.asdict(config), default=str))
-    if ranks is not None:
+    if ranks is None:
+        logging.info("devices: %s", split)
+    else:
         logging.info("data-parallel: %s; rank 0 writes the run", split)
 
     # ---- data
@@ -512,12 +505,12 @@ def _train_driver(config: ExperimentConfig, data_root: str,
     if ranks is not None:
         chunk = 1
     resident = use_resident(config.device_resident_data, len(train_ds),
-                            train_ds.canvas_size, world)
+                            train_ds.canvas_size, n_data)
     train_pool, pool_gather = None, gather
     if resident:
         logging.info("staging %d slices (%.2f GB, /%d devices) in device memory",
                      len(train_ds), pool_bytes(len(train_ds), train_ds.canvas_size) / 2 ** 30,
-                     world)
+                     n_data)
         if ranks is None:
             train_pool = stage_train_pool(train_ds, device)
         else:
@@ -641,12 +634,15 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         # epoch-keyed seed and one frozen-BN forward.  The upper-bound
         # session draws none, as in JAX (loop.py:487).  A sharded pool's
         # gather is a collective, so every rank joins it.
-        if config.tb_figures and not upper_bound and (tb or (world > 1 and resident)):
+        if config.tb_figures and not upper_bound and (tb or (n_data > 1 and resident)):
             fig_raw = (pool_gather(train_pool, last) if resident else
                        raw_batch_to_device(last, device, shrink=True))
             if tb:
                 generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
                 fig_batch = augment_fn(fig_raw, generator)
+                # Rank 0's forward of the whole batch, alone: no halo
+                # exchange (the next step attaches the ranks again).
+                mesh.attach_ranks(state.model, None)
                 fig_out = _figure_forward(state, fig_batch)
                 _tb_train_figures(
                     tb, {k: v.float().cpu().numpy() for k, v in fig_batch.items()},

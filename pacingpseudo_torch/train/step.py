@@ -26,19 +26,23 @@ blocks into a resident pool, and add their metrics on the device.  On a
 card with ``chunk > 1`` each update is a replay of one captured CUDA graph
 of the step (``train/graph.py``); elsewhere the eager step runs.
 
-Data-parallel steps (``ranks``, a ``parallel.mesh.RankGroup``): every rank
-takes the **global** batch, augments all of it with the generators seeded
-as the single-device step seeds them, and keeps its rows; the forward runs
-on those rows with synchronised BatchNorm, each loss is the rank's sum
-over the global count, the bank folds the gathered global batch in order,
-and the gradients and metrics are summed over the ranks before the
-update, which is then the same on every rank.  So one update is the
-single-device update on the global batch (the JAX package's sharded step,
-``pacingpseudo_tpu/parallel/mesh.py``).  These steps run eagerly.
+Data-parallel and height-sharded steps (``ranks``, a ``parallel.mesh.
+RankGroup`` of ``n_data x n_space`` ranks): every rank takes the **global**
+batch, augments all of it with the generators seeded as the single-device
+step seeds them, and keeps its block, the rows of its data index and, with
+a space axis, the heights of its space index (``parallel.spatial.
+shard_batch``, where JAX's step applies ``make_spatial_constraint``); the
+forward runs on that block with synchronised BatchNorm and halo-exchanged
+convs and resizes, each loss is the rank's sum over the global count, the
+bank folds the global batch in order (its features gathered over both
+axes, the scribble kept whole from before the cut), and the gradients and
+metrics are summed over the ranks before the update, which is then the
+same on every rank.  So one update is the single-device update on the
+global batch (the JAX package's sharded step, ``pacingpseudo_tpu/parallel/
+mesh.py`` and ``spatial.py``).  These steps run eagerly.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -59,6 +63,7 @@ from pacingpseudo_torch.losses import (
 from pacingpseudo_torch.data.resident import gather
 from pacingpseudo_torch.models.aux_path import memory_update
 from pacingpseudo_torch.ops.fused_loss import fused_pacing_losses
+from pacingpseudo_torch.parallel import spatial
 from pacingpseudo_torch.parallel.mesh import attach_ranks
 from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.optim import lr_at, set_lr
@@ -88,11 +93,14 @@ def _ramp(config, epoch, weight, ramp):
             if ramp else weight)
 
 
-def _pacing_losses(config, model, batch, epoch, ranks=None):
+def _pacing_losses(config, model, batch, epoch, ranks=None, shard=None):
     """Forward and loss assembly of one pacing step: ``(total, metrics,
     new_bank)``; ``new_bank`` is None without the memory bank.  With
-    ``ranks`` the batch is this rank's rows and every loss its share."""
+    ``ranks`` the batch is this rank's block (``shard`` its height shard,
+    None where it is whole in height) and every loss its share;
+    ``scribble_global`` in the batch is the whole scribble, for the bank."""
     scribble = batch["scribble"]
+    bank_scribble = batch.get("scribble_global", scribble)
     valid_mask = batch.get("valid_mask")
     image_strong = (batch.get("image_strong")
                     if config.do_decoder_consistency else None)
@@ -115,8 +123,8 @@ def _pacing_losses(config, model, batch, epoch, ranks=None):
                                   config.ramp_up_loss_cr)
         total = total + loss_cr
         metrics["loss_cr"] = loss_cr
-        return _pacing_aux_losses(config, model, outputs, scribble,
-                                  scb_target, epoch, total, metrics, ranks)
+        return _pacing_aux_losses(config, model, outputs, bank_scribble,
+                                  scb_target, epoch, total, metrics, ranks, shard)
 
     # Reference: consistency_reglur_memory.py:29-36
     loss_pce = partial_cross_entropy_loss(logits_weak, scb_target,
@@ -157,17 +165,19 @@ def _pacing_losses(config, model, batch, epoch, ranks=None):
         total = total + loss_cr
         metrics["loss_cr"] = loss_cr
 
-    return _pacing_aux_losses(config, model, outputs, scribble, scb_target,
-                              epoch, total, metrics, ranks)
+    return _pacing_aux_losses(config, model, outputs, bank_scribble, scb_target,
+                              epoch, total, metrics, ranks, shard)
 
 
 def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
-                       total, metrics, ranks=None):
+                       total, metrics, ranks=None, shard=None):
     """Aux-path and memory-bank tail shared by both loss paths.  With
-    ``ranks`` the bank folds the global batch (every rank's aux features
-    and scribbles, gathered in rank order), so it stays equal on every
-    rank, and the memory loss, which every rank computes whole, counts
-    ``1/world`` on each."""
+    ``ranks`` the bank folds the global batch (every rank's aux features,
+    gathered in order over the data axis and then over ``shard``'s space
+    axis, and
+    ``scribble``, which is the whole global scribble), so it stays equal on
+    every rank, and the memory loss, which every rank computes whole,
+    counts ``1/world`` on each."""
     new_bank = None
     if config.do_aux_path:
         # Reference: consistency_reglur_memory.py:73-90, train_chaos.py:294-301
@@ -182,7 +192,7 @@ def _pacing_aux_losses(config, model, outputs, scribble, scb_target, epoch,
             # first, then the shared classifier scores the fresh prototypes.
             features = outputs["aux/features"]
             if ranks is not None:
-                features, scribble = ranks.gather_rows(features), ranks.gather_rows(scribble)
+                features = spatial.gather_heights(ranks.gather_rows(features), shard)
             new_bank = memory_update(
                 model.aux_path.memory_bank[:, :, 0, 0],
                 features, scribble,
@@ -240,11 +250,10 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
     backward, the optimizer update with the per-epoch learning rate, the
     bank's EMA when ``new_bank`` is not None.  The step's ``scalars(step)``
     gives the :class:`StepScalars` of an update.  With ``ranks`` the
-    (augmented) global batch is cut to this rank's rows, ``losses`` gets
-    ``ranks=ranks``, and the gradients and metrics are summed over the
-    ranks."""
-    if ranks is not None:
-        losses = functools.partial(losses, ranks=ranks)
+    (augmented) global batch is cut to this rank's block
+    (``spatial.shard_batch``; the whole scribble rides along as
+    ``scribble_global``), ``losses`` gets ``ranks`` and the block's
+    ``shard``, and the gradients and metrics are summed over the ranks."""
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -255,12 +264,17 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
                 raise ValueError("a step with an augment_fn needs a generator")
             with torch.no_grad():
                 batch = augment_fn(batch, generator)
+        extra = {}
         if ranks is not None:
-            batch = {k: ranks.local_rows(v) for k, v in batch.items()}
-            attach_ranks(model, ranks)
+            whole = batch.get("scribble")
+            batch, shard = spatial.shard_batch(batch, ranks, config.output_stride)
+            if whole is not None:
+                batch["scribble_global"] = whole
+            attach_ranks(model, ranks, shard)
+            extra = {"ranks": ranks, "shard": shard}
         model.train(module_train)
         opt.zero_grad(set_to_none=True)
-        total, metrics, new_bank = losses(config, model, batch, epoch)
+        total, metrics, new_bank = losses(config, model, batch, epoch, **extra)
         total.backward()
         if ranks is not None:
             ranks.sum_grads(model.parameters())
@@ -406,25 +420,31 @@ def eval_logits(model, image):
 
 
 def make_pacing_eval_step(config, ranks=None):
-    """Validation step ``(state, batch) -> (loss_pce, dice (N, C), logits)``.
+    """Validation step ``(state, batch, shard=None) -> (loss_pce, dice (N,
+    C), logits)``.
 
     Weak forward with the running BN statistics, PCE on the scribbles and
     per-class Dice against the **full** labels (train_chaos.py:369-391).
     With ``sample_valid`` (N,) in the batch, padded samples' targets become
     ``ignored_index`` and add no pixels to the loss.  The model's
     train/eval mode is restored afterwards.  With ``ranks`` the batch is
-    this rank's rows and the loss its share (the global count).
+    this rank's block (its rows, and its heights on a space axis: the
+    ``shard`` that ``spatial.shard_batch`` returned with it), the loss its
+    share (the global count), and the Dice each sample's whole (summed
+    over the space group).
     """
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: Dict[str, Any]):
+    def eval_step(state: TrainState, batch: Dict[str, Any], shard=None):
+        if ranks is not None:
+            attach_ranks(state.model, ranks, shard)
         logits = eval_logits(state.model, batch["image"])
         scb_target = _ignore_padded(config, batch["scribble"].argmax(dim=1),
                                     batch.get("sample_valid"))
         loss_pce = partial_cross_entropy_loss(logits, scb_target,
                                               config.ignored_index, ranks)
         dice = dice_per_class(F.softmax(logits, dim=1), batch["label"],
-                              region_mask=batch.get("region_mask"))
+                              region_mask=batch.get("region_mask"), ranks=ranks)
         return loss_pce, dice, logits
 
     return eval_step
@@ -443,7 +463,7 @@ def _ignore_padded(config, target, sample_valid):
 # Upper-bound (fully supervised) steps -- reference upper_bound_chaos.py
 # ---------------------------------------------------------------------------
 
-def _upper_bound_losses(config, model, batch, epoch, ranks=None):
+def _upper_bound_losses(config, model, batch, epoch, ranks=None, shard=None):
     """Forward and losses of one upper-bound step on the bare model
     (``pacingpseudo_tpu/train/step.py:439-460``, reference
     upper_bound_chaos.py:157-167): CE on the argmax of the one-hot label,
@@ -477,21 +497,25 @@ def make_upper_bound_train_step(config, steps_per_epoch: int,
                             module_train, augment_fn, ranks)
 
 
-def make_upper_bound_eval_step(config):
-    """Validation step ``(state, batch) -> (loss_ce, loss_dice, dice (N, C),
-    logits)`` (upper_bound_chaos.py:186-209): CE on the argmax of the
+def make_upper_bound_eval_step(config, ranks=None):
+    """Validation step ``(state, batch, shard=None) -> (loss_ce, loss_dice,
+    dice (N, C), logits)`` (upper_bound_chaos.py:186-209): CE on the argmax of the
     label (padded samples of ``sample_valid`` ignored), the soft Dice loss
-    and the per-class Dice of :func:`make_pacing_eval_step`."""
+    and the per-class Dice of :func:`make_pacing_eval_step`, whose
+    ``ranks`` and ``shard`` this takes too (the losses are the rank's
+    shares)."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: Dict[str, Any]):
+    def eval_step(state: TrainState, batch: Dict[str, Any], shard=None):
+        if ranks is not None:
+            attach_ranks(state.model, ranks, shard)
         logits = eval_logits(state.model, batch["image"])
         target = _ignore_padded(config, batch["label"].argmax(dim=1),
                                 batch.get("sample_valid"))
-        loss_ce = partial_cross_entropy_loss(logits, target, config.ignored_index)
-        loss_dice = dice_loss_fn(logits, batch["label"])
+        loss_ce = partial_cross_entropy_loss(logits, target, config.ignored_index, ranks)
+        loss_dice = dice_loss_fn(logits, batch["label"], ranks)
         dice = dice_per_class(F.softmax(logits, dim=1), batch["label"],
-                              region_mask=batch.get("region_mask"))
+                              region_mask=batch.get("region_mask"), ranks=ranks)
         return loss_ce, loss_dice, dice, logits
 
     return eval_step

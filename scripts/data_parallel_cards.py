@@ -1,6 +1,7 @@
-"""Data-parallel training on the cards of one machine.
+"""Data-parallel and height-sharded training on the cards of one machine.
 
     python3 scripts/data_parallel_cards.py
+    python3 scripts/data_parallel_cards.py --phase space --spatial_shards 2
 
 On one card this is ``chip_smoke.py``'s ``train (data-parallel)`` phase
 alone (two ranks sharing the card over gloo); with two cards or more the
@@ -14,6 +15,7 @@ limits first.  Exits non-zero if a check of the phase fails.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import pathlib
@@ -54,6 +56,10 @@ def single_card_ms(config, raws, dev):
 
 
 def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--phase", choices=["data", "space"], default="data")
+    p.add_argument("--spatial_shards", type=int, default=0)
+    args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script measures the cards")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -72,17 +78,24 @@ def main() -> None:
         cs._release_memory()
         loop_root = os.path.join(root, "loop")
         cs.make_loop_pool(loop_root, config.seed)
-        cs.phase_data_parallel(dev, loop_root, raws, smi, ms)
+        if args.phase == "data":
+            cs.phase_data_parallel(dev, loop_root, raws, smi, ms)
+        else:
+            print(f"launches by path: {cs.phase_height_sharded(dev, loop_root, raws, smi, ms)}",
+                  flush=True)
         cfg = dataclasses.replace(config, epoch=cs.LOOP_EPOCHS, num_devices=cards,
-                                  device_resident_data="on", ckp_interval=1)
+                                  device_resident_data="on", ckp_interval=1,
+                                  spatial_shards=args.spatial_shards)
         run_dir = os.path.join(loop_root, "runs", f"cards{cards}")
         cs._release_memory()
         t0 = time.perf_counter()
         loop.train_driver(cfg, loop_root, run_dir,
                           device=[torch.device("cuda", i) for i in range(cards)])
-        _, epochs, metrics = cs._loop_epochs(run_dir)
-        print(f"loop on {cards} rank(s): {time.perf_counter() - t0:.1f} s with the ranks' "
-              f"start, epochs (s, slices/s) {epochs}, metrics {metrics}", flush=True)
+        log, epochs, metrics = cs._loop_epochs(run_dir)
+        split = next((line for line in log.splitlines() if "data-parallel: " in line), "")
+        print(f"loop on {cards} card(s), {split.split('data-parallel: ')[-1]}: "
+              f"{time.perf_counter() - t0:.1f} s with the ranks' start, epochs (s, slices/s) "
+              f"{epochs}, metrics {metrics}", flush=True)
 
 
 if __name__ == "__main__":

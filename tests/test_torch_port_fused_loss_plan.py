@@ -4,7 +4,8 @@
 The plan is pure Python and the C entry of ``csrc/fused_loss.cu`` refuses
 any plan that does not cover each image exactly, so its rules are held
 here, at the train step's shape (12 x 5 x 256², weak and strong as the
-halves of one tensor), the other datasets' crops, odd widths, one image
+halves of one tensor), a rank's block of the data-parallel and
+height-sharded steps (unequal heights included), the other datasets' crops, odd widths, one image
 and images of one pixel: the blocks' runs of pixels cover every pixel of
 every image exactly once; a Python copy of the kernel's walk (thread t
 takes the groups t, t + 256, ... of its block's run, FWD_UNROLL of them
@@ -31,6 +32,12 @@ SHAPES = [
     (12, 5, 256, 256, True, 132),     # the CHAOS step
     (24, 5, 256, 256, True, 132),
     (6, 5, 256, 256, True, 132),      # a rank's rows of the step on 2 ranks
+    (12, 5, 128, 256, True, 132),     # a rank's block on 2 space ranks
+    (12, 5, 88, 256, True, 132),      # the uneven split on 3: 88, 88, 80 rows
+    (12, 5, 80, 256, True, 132),
+    (12, 5, 56, 256, True, 132),      # on 5 (JAX's AUTO split of 5 devices): 56 ...
+    (12, 5, 48, 256, True, 132),      # ... and 48 rows
+    (6, 5, 128, 256, True, 132),      # data 2 x space 2
     (12, 4, 224, 224, True, 132),     # ACDC
     (12, 2, 224, 224, True, 132),     # LVSC
     (12, 5, 256, 256, True, 114),     # a card with fewer SMs

@@ -20,9 +20,10 @@ against ``pacingpseudo_tpu`` on the CPU, float32, 64x64 canvases, init_ch 8.
   checkpoint of the port into the tree of JAX's upper-bound state.
 * ``python -m pacingpseudo_torch.cli.inference`` resolves a run
   directory's final checkpoint and writes the same ``eval_data.npz``; it
-  refuses a path without the fold and ``--spatial_shards`` above 1.  Its
-  parser has every flag of JAX's, with the same default, choices and
-  parsed value, ``--gpu``'s default (``0``, not ``1``) the one difference.
+  refuses a path without the fold, and hands ``--spatial_shards`` and the
+  devices to ``run_inference``.  Its parser has every flag of JAX's, with
+  the same default, choices and parsed value, ``--gpu``'s default (``0``,
+  not ``1``) the one difference, and ``--num_devices`` besides.
 """
 import argparse
 import dataclasses
@@ -304,7 +305,7 @@ def test_upper_bound_checkpoint_opens_in_the_jax_importer(tmp_path):
         assert torch.equal(p, state.model.state_dict()["backbone." + name]), name
 
 
-def test_cli_resolves_the_final_checkpoint(runs, tmp_path):
+def test_cli_resolves_the_final_checkpoint(runs, tmp_path, monkeypatch):
     run = tmp_path / "Upperbound-fold1-x"
     shutil.copytree(runs["siamese"], run / "ckps" / "ckp_399")
     argv = ["--gpu", "cpu", "--dataset", "chaost1", "--fold", "1", "--checkpoint_file",
@@ -322,8 +323,13 @@ def test_cli_resolves_the_final_checkpoint(runs, tmp_path):
     assert "ckps/ckp_399" in log and "Fold 1, overall Dice" in log and "slices/s" in log
     with pytest.raises(SystemExit, match="fold2"):
         cli.main([*argv[:5], "2", *argv[6:]])
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        cli.main([*argv, "--spatial_shards", "2"])
+    # --spatial_shards and the devices reach run_inference (the sharded run
+    # itself: tests/test_torch_port_spatial.py).
+    seen = {}
+    monkeypatch.setattr(infer, "run_inference", lambda **kw: seen.update(kw))
+    cli.main([*argv, "--spatial_shards", "2", "--num_devices", "3"])
+    assert (seen["spatial_shards"], seen["num_devices"]) == (2, 3)
+    assert seen["device"] == [torch.device("cpu")]
 
 
 JAX_FLAGS = [a for a in jax_cli.build_parser()._actions if a.option_strings and a.dest != "help"]
@@ -333,7 +339,9 @@ REQUIRED = ["--fold", "1", "--checkpoint_file", "run-fold1"]
 def test_the_parsers_have_the_same_flags():
     port = {a.dest: a for a in cli.build_parser()._actions
             if a.option_strings and a.dest != "help"}
-    assert sorted(port) == sorted(a.dest for a in JAX_FLAGS) and len(port) == 21
+    # --num_devices, the first k devices of --gpu, is the port's one flag more
+    assert sorted(port) == sorted([a.dest for a in JAX_FLAGS] + ["num_devices"])
+    assert len(port) == 22
     for a in JAX_FLAGS:
         b = port[a.dest]
         assert (b.option_strings, b.choices, b.type, b.required, type(b)) == (
@@ -359,4 +367,5 @@ def test_flag_parses_to_the_same_value(action):
         got = vars(cli.build_parser().parse_args(argv))
         if "--gpu" not in argv:
             assert (want.pop("gpu"), got.pop("gpu")) == ("1", "0")
+        assert got.pop("num_devices") == 0
         assert got == want, argv

@@ -169,10 +169,10 @@ def test_step_seed_is_a_pure_function():
 
 
 def test_gpu_flag_names_the_device():
-    assert cli.device_from_gpu("cpu") == torch.device("cpu")
-    assert cli.device_from_gpu("0") == torch.device("cuda", 0)
+    assert cli.devices_from_gpu("cpu") == [torch.device("cpu")]
+    assert cli.devices_from_gpu("0") == [torch.device("cuda", 0)]
     with pytest.raises(SystemExit):
-        cli.device_from_gpu("0,1")
+        cli.devices_from_gpu("cuda0")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             loop._train_driver(_config(), "unused", "unused", device="cuda")

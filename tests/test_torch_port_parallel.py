@@ -36,8 +36,10 @@ and off, within JAX's bound for its multi-device driver
 (``tests/test_driver_multidevice.py:74-75``: val loss rtol 1e-3, val Dice
 atol 5e-3); a 2-rank checkpoint resumed in one process, and a one-process
 checkpoint resumed by the CLI on 2 ranks (``--gpu cpu --num_devices 2
---resume``); and the refusals: ``--spatial_shards 2``, an AUTO split with
-a space axis, more devices than listed, a card that does not exist.
+--resume``); the splits with a space axis that the CLI runs (an explicit
+``--spatial_shards 2``, the AUTO split of 4 devices at batch 6, a space
+axis clamped to one device); and the refusals: more devices than listed,
+a card that does not exist.
 """
 import dataclasses
 import glob
@@ -472,15 +474,25 @@ def test_cli_resumes_a_one_process_checkpoint_on_two_ranks(runs, data_root, tmp_
     assert os.path.isdir(os.path.join(run_dir, "ckps", f"ckp_{EP - 1}"))
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--num_devices", "2", "--spatial_shards", "2"], "spatial_shards 2: height sharding"),
-    (["--num_devices", "4", "--batch_size", "6"], "AUTO split is data=2 x space=2"),
-    (["--num_devices", "1", "--spatial_shards", "3"], "not ported"),
+@pytest.mark.parametrize("argv,log", [
+    (["--num_devices", "2", "--spatial_shards", "2"], "mesh data=1 x space=2"),
+    (["--num_devices", "4", "--batch_size", "6"],
+     "auto spatial fallback: batch 6 on 4 devices -> data=2 x space=2"),
+    (["--num_devices", "1", "--spatial_shards", "3"], "clamping spatial_shards 3 -> 1 (devices)"),
 ], ids=["explicit", "auto", "one-device"])
-def test_cli_refuses_height_sharding(data_root, tmp_path, argv, match):
-    with pytest.raises(SystemExit, match=match):
-        train_cli.main([*ARGV, "--gpu", "cpu", *argv, "--data_root", data_root,
-                        "--run_dir", str(tmp_path / "refused")])
+def test_cli_refuses_height_sharding(data_root, tmp_path, argv, log):
+    """The splits with a space axis run, as JAX splits them: an explicit
+    space axis, the AUTO split with one, and a space axis clamped to one
+    device.  One update each; ``log.txt`` says how the devices split.
+    (The name is that of the refusal these three cases replaced: the port
+    refused a space axis before it had height sharding.)"""
+    run_dir = tmp_path / "split"
+    train_cli.main([*ARGV, "--gpu", "cpu", *argv, "--epoch", "1", "--max_steps_per_epoch", "1",
+                    "--data_root", data_root, "--run_dir", str(run_dir)])
+    text = (run_dir / "log.txt").read_text()
+    assert log in text and "epoch: 000" in text
+    assert ("data-parallel: " in text) == (argv[1] != "1")       # ranks unless one device
+    assert os.path.isdir(run_dir / "ckps" / "ckp_0")
 
 
 def test_devices_resolve_as_listed():
