@@ -158,9 +158,26 @@ Phases, each of which exits non-zero on failure:
               ranks;
               ``fused_loss_fwd``, ``fused_loss_bwd`` and ``warp_cubic`` once
               a rank an update.  Then the loop on 2 ranks (2 epochs of 20
-              steps, the pool sharded): rank 0 alone writes the run, and its
-              ``ckp_0`` resumes on one card.  Update ms only with a card a
-              rank.  A rank that fails ends the script non-zero.
+              steps, the pool sharded, 8 a dispatch: replayed on NCCL, eager
+              steps on gloo, as its log must say): rank 0 alone writes the
+              run, and its ``ckp_0`` resumes on one card.  Update ms only
+              with a card a rank.  A rank that fails ends the script
+              non-zero.  ``train (height-sharded)``: the same hold on space
+              ranks, and ``train_driver`` with ``spatial_shards=2``.
+16c. train (ranks, graph) -- ``steps_per_dispatch`` on ranks
+              (``phase_ranks_graph``).  With two cards or more, NCCL ranks
+              a card each (data 2, space 2, and data 2 x space 2 with four):
+              a replayed update held against the eager update on the same
+              ranks (bf16 beside four eager repeats, float32 under
+              deterministic algorithms beside a spread of 0), then 8
+              replays and 8 eager updates timed after 8 of each, one
+              ``fused_loss_fwd``, ``fused_loss_bwd`` and ``warp_cubic`` a
+              rank an update, and the ranks' parameters, BN statistics and
+              bank equal after them.  With one card: a one-rank NCCL world
+              (in this process) does the same with its world-axis
+              collectives captured, and two gloo ranks sharing the card run
+              a chunk of 8 as eager steps, bit-equal in deterministic
+              float32 to 8 single updates.
 17. launches -- ``bn_sums`` and ``fused_loss_fwd`` are one kernel on the
               card per call, in a profiler trace of three calls at each of
               their variants; inside 4 replays of the raw step's graph the
@@ -1932,9 +1949,11 @@ def _hold_replay(name, config, augment_fn, raws, dev):
     return " || ".join(out)
 
 
-def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs):
-    """The hold of :func:`_hold_replay` in the current mode.  The graph's
-    first update runs eagerly (the warm-up) and the step is captured
+def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=None):
+    """The hold of :func:`_hold_replay` in the current mode; with ``ranks``
+    (``parallel.mesh.RankGroup``) every state is this rank's replica, every
+    update one on the ranks, and the LeakyReLU flips this rank's block's.
+    The graph's first update runs eagerly (the warm-up) and the step is captured
     (``StepGraph``); its state goes through a checkpoint (the eager layout)
     into one fresh eager state a name of ``eager_runs``; then the second
     update is a replay on one side and the eager step on each of the
@@ -1962,15 +1981,18 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs):
     from pacingpseudo_torch.train import checkpoint as ckpt
     from pacingpseudo_torch.train.graph import StepGraph
     from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.parallel import mesh
     from pacingpseudo_torch.train.step import (make_pacing_train_step,
                                                make_upper_bound_train_step, seed_step)
 
     make = (make_upper_bound_train_step if config.session == "Upperbound"
             else make_pacing_train_step)
     state_g = create_train_state(config, device=dev, seed=11)
+    if ranks is not None:
+        mesh.replicate(state_g.model, ranks)
     signs = {"graph": []}
     hooks = _record_signs(state_g.model, signs["graph"])
-    step_g = make(config, 100, augment_fn=augment_fn)
+    step_g = make(config, 100, augment_fn=augment_fn, ranks=ranks)
     gen_g = torch.Generator(device=dev)
     graph = StepGraph()
 
@@ -1998,7 +2020,7 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs):
         hooks += _record_signs(state.model, signs[r])
         gen = torch.Generator(device=dev)
         seed_step(gen, dev, config.seed, state.step)
-        metrics[r] = make(config, 100, augment_fn=augment_fn)(state, raws[1], gen)
+        metrics[r] = make(config, 100, augment_fn=augment_fn, ranks=ranks)(state, raws[1], gen)
     metrics["graph"] = graph.run(step_g, state_g, raws[1], as_batch, gen_g, reseed)  # replay
     torch.cuda.synchronize()
     for hook in hooks:
@@ -2138,15 +2160,21 @@ def phase_graph_parity(dev, optimizer):
     print(f"{name}: {summary}", flush=True)
 
 
-def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters):
+def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters, ranks=None):
     """The raw step of ``config``'s session on ``raws``: the eager step
     (``make_chunked_train_step(step, 1)``) and the replay of its graph
     (``chunk`` = ``len(raws)``), each from a fresh seeded state; per path
     the first dispatch warms up (for the graph: the eager update, the
     capture and the replays of the rest), then ``len(raws)`` updates are
     timed one dispatch each with a sync.  Both paths make ``2 len(raws)``
-    updates, and the wrappers' counts must be equal on both.  Returns
-    (eager median ms, replay median ms, the graph path's launches)."""
+    updates, and the wrappers' counts must be equal on both.  With
+    ``ranks`` (NCCL) the states are replicas, each timed update starts
+    after an eager ``all_reduce`` that brings the ranks together (an eager
+    collective between replays, on the communicator the graph's own use),
+    and after each path the ranks' parameters, BN statistics and bank must
+    be equal.  Returns (eager median ms, replay median ms, the graph path's
+    launches)."""
+    from pacingpseudo_torch.parallel import mesh
     from pacingpseudo_torch.train.graph import StepGraph
     from pacingpseudo_torch.train.state import create_train_state
     from pacingpseudo_torch.train.step import (make_chunked_train_step,
@@ -2161,7 +2189,9 @@ def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters):
     for path in ("eager", "graph"):
         graph = StepGraph()
         state = create_train_state(config, device=dev)
-        chunked = make_chunked_train_step(make(config, 1000, augment_fn=augment_fn),
+        if ranks is not None:
+            mesh.replicate(state.model, ranks)
+        chunked = make_chunked_train_step(make(config, 1000, augment_fn=augment_fn, ranks=ranks),
                                           k if path == "graph" else 1, graph)
         gen = torch.Generator(device=dev)
         torch.cuda.synchronize()
@@ -2173,6 +2203,8 @@ def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters):
                 chunked(state, {key: v[i:i + 1] for key, v in stack.items()}, gen, config.seed)
         ms, losses = [], None
         for i in range(k):
+            if ranks is not None:
+                ranks.sum_(torch.zeros(1, device=dev))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses = chunked(state, {key: v[i:i + 1] for key, v in stack.items()}, gen,
@@ -2186,6 +2218,9 @@ def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters):
         _check((graph.captures, graph.replays) == want,
                f"{name}: {graph.captures} captures and {graph.replays} replays on the {path} "
                f"path, want {want}")
+        _check(ranks is None or _equal_on_ranks(ranks, state),
+               f"{name}: after {2 * k} {path} updates the ranks' parameters, BN statistics "
+               f"or bank differ")
         medians[path] = statistics.median(ms)
         print(f"{name}: {path} step ms {[round(t, 3) for t in ms]}", flush=True)
         state.optimizer.zero_grad(set_to_none=True)   # a replay's grads live in the pool
@@ -2205,7 +2240,8 @@ def phase_graph_train(dev, counters, raw_batches, augment_fn, ub_augment_fn, fc,
     Experiment step under the fused conv impl at full width, one replayed
     update held against the eager one (``_hold_replay``) and the median
     replay against the eager raw step in this run.  Returns each graph
-    path's launches (the warm-up updates and the replays)."""
+    path's launches (the warm-up updates and the replays), and the
+    Experiment step's (eager, replay) median ms."""
     check_graph_augment(augment_fn, [next(raw_batches) for _ in range(4)], dev)
     for optimizer in ("adam", "momentum"):
         phase_graph_parity(dev, optimizer)
@@ -2225,11 +2261,13 @@ def phase_graph_train(dev, counters, raw_batches, augment_fn, ub_augment_fn, fc,
         finally:
             fc.set_conv_impl("xla")
         paths[f"train (raw, graph, {label})"] = launches
+        if label == "Experiment":
+            one_card = (eager, replay)
         readings.append(f"{label}: eager {eager:.3f} ms, replay {replay:.3f} ms "
                         f"({config.batch_size * 1e3 / replay:.1f} slices/s)")
     print(f"train (raw, graph): {smi}: median of {GRAPH_TIMED} steps, "
           f"{'; '.join(readings)}", flush=True)
-    return paths
+    return paths, one_card
 
 
 def make_loop_pool(root, seed, patients=LOOP_PATIENTS, per_patient=TEST_PATIENT_SLICES):
@@ -2655,13 +2693,8 @@ def _dp_rank(rank, devices, store, work, n_space=1):
                f"{name}: rank {rank} launched {launches} in one update, expected "
                f"{expected}")
         # Replicas equal on every rank: parameters, BN statistics, the bank.
-        flat = torch.cat([t.detach().reshape(-1).float() for t in
-                          list(state.model.parameters()) + list(state.model.buffers())])
-        every = ranks.sum_(torch.stack([flat if r == ranks.rank else torch.zeros_like(flat)
-                                        for r in range(ranks.world)]))
-        _check(all(torch.equal(every[0], every[r]) for r in range(ranks.world)),
+        _check(_equal_on_ranks(ranks, state),
                f"{name}: the ranks' parameters, BN statistics or bank differ")
-        del every
         # Branch flips: this rank's block against the single-card
         # forward's, summed over the ranks.
         mine = _sign_flips(signs["ranks"], [_rank_block(t, rows, n, split)
@@ -2824,8 +2857,9 @@ def phase_data_parallel(dev, data_root, raws, smi, single_ms):
     loop.train_driver(loop_config, data_root, run_dir, device=devices)
     seconds = time.perf_counter() - t0
     log, epochs, epoch_metrics = _loop_epochs(run_dir)
+    dispatch = _loop_dispatch(loop_config.steps_per_dispatch, backend)
     _check(f"data-parallel: data mesh of {DP_WORLD}" in log and f"over {backend}" in log
-           and "steps per dispatch 1 (eager steps)" in log and len(epochs) == LOOP_EPOCHS
+           and dispatch in log and len(epochs) == LOOP_EPOCHS
            and all(math.isfinite(v) for m in epoch_metrics for v in m.values()),
            f"{name}: the loop on the ranks did not run as planned:\n{log[-2000:]}")
     files = sorted(os.path.relpath(os.path.join(d, f), run_dir)
@@ -2852,11 +2886,19 @@ def phase_data_parallel(dev, data_root, raws, smi, single_ms):
                f"{name}: epoch {LOOP_EPOCHS - 1} {k} {metrics_r[-1][k]} resumed on one "
                f"card, {want} on the ranks")
     print(f"{name}: {smi}: loop on {DP_WORLD} ranks ({backend}), 2 epochs of 20 steps, "
-          f"pool resident and sharded, in {seconds:.1f} s with the ranks' start: epochs "
+          f"pool resident and sharded, {dispatch}, in {seconds:.1f} s with the ranks' "
+          f"start: epochs "
           f"(s, slices/s) {epochs}, metrics {epoch_metrics}; rank 0 alone wrote the run "
           f"({len(files)} files); its ckp_0 resumed on one card: epoch 1 {metrics_r[-1]}",
           flush=True)
     return [r["launches"][config.compute_dtype] for r in results]
+
+
+def _loop_dispatch(steps_per_dispatch, backend):
+    """The loop's log of its dispatch on ranks of ``backend``: a chunk of
+    ``steps_per_dispatch`` updates, replayed on NCCL, eager on gloo."""
+    how = "CUDA graph replays" if backend == "nccl" else "eager steps"
+    return f"steps per dispatch {steps_per_dispatch} ({how})"
 
 
 SP_WORLD = 2             # space 2 (data 1); with four cards also data 2 x space 2
@@ -2905,15 +2947,228 @@ def phase_height_sharded(dev, data_root, raws, smi, single_ms):
                       device=devices)
     seconds = time.perf_counter() - t0
     log, epochs, epoch_metrics = _loop_epochs(run_dir)
-    _check(f"mesh data=1 x space={SP_WORLD}" in log
+    dispatch = _loop_dispatch(min(loop_config.steps_per_dispatch, SP_LOOP_STEPS),
+                              mesh.backend_for(devices))
+    _check(f"mesh data=1 x space={SP_WORLD}" in log and dispatch in log
            and f"over {mesh.backend_for(devices)}" in log and "val: 000" in log
            and len(epochs) == 1
            and all(math.isfinite(v) for m in epoch_metrics for v in m.values()),
            f"{name}: the loop on the ranks did not run as planned:\n{log[-2000:]}")
     print(f"{name}: {smi}: train_driver with spatial_shards={SP_WORLD} on "
-          f"{', '.join(map(str, devices))}: 1 epoch of {SP_LOOP_STEPS} steps and the "
-          f"validation in {seconds:.1f} s with the ranks' start, epoch (s, slices/s) {epochs}, "
-          f"metrics {epoch_metrics}", flush=True)
+          f"{', '.join(map(str, devices))}: 1 epoch of {SP_LOOP_STEPS} steps ({dispatch}) "
+          f"and the validation in {seconds:.1f} s with the ranks' start, epoch (s, "
+          f"slices/s) {epochs}, metrics {epoch_metrics}", flush=True)
+    return paths
+
+
+GR_TIMED = 8             # updates timed a path, and the gloo ranks' chunk, in train (ranks, graph)
+
+
+def _equal_on_ranks(ranks, state):
+    """Whether ``state``'s parameters, BN statistics and bank are equal bit
+    for bit on every rank (each rank's copy in its slot of a zero-filled
+    buffer, summed)."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in
+                      list(state.model.parameters()) + list(state.model.buffers())])
+    every = ranks.sum_(torch.stack([flat if r == ranks.rank else torch.zeros_like(flat)
+                                    for r in range(ranks.world)]))
+    return all(torch.equal(every[0], every[r]) for r in range(ranks.world))
+
+
+def _chunk_on_gloo(name, config, augment_fn, raws, dev, counters, ranks):
+    """A chunk of ``len(raws)`` updates on gloo ranks, which ``uses_graph``
+    steps eagerly, against the same updates one at a time, each reseeded
+    from ``(seed, step)``, in float32 under deterministic algorithms: the
+    summed metrics and the whole state bit for bit.  Returns the chunk's
+    launches."""
+    import dataclasses
+
+    from pacingpseudo_torch.parallel import mesh
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import (_accumulate, make_chunked_train_step,
+                                               make_pacing_train_step, seed_step, uses_graph)
+
+    k = len(raws)
+    _check(ranks.backend == "gloo" and not uses_graph(dev, k, ranks.backend),
+           f"{name}: the {ranks.backend} ranks would replay a graph")
+    cfg = dataclasses.replace(config, compute_dtype="float32")
+    stack = {key: torch.stack([r[key] for r in raws]) for key in raws[0]}
+    runs = {}
+    for how in ("chunk", "single"):
+        state = create_train_state(cfg, device=dev, seed=11)
+        mesh.replicate(state.model, ranks)
+        step = make_pacing_train_step(cfg, 1000, augment_fn=augment_fn, ranks=ranks)
+        gen = torch.Generator(device=dev)
+        _reset_launch_counts(counters)
+        if how == "chunk":
+            acc = make_chunked_train_step(step, k)(state, stack, gen, cfg.seed)
+            launches = {key: v for key, v in _launch_counts(counters).items() if v}
+        else:
+            acc = None
+            for i in range(k):
+                seed_step(gen, dev, cfg.seed, state.step)
+                acc = _accumulate(acc, step(state, {key: v[i] for key, v in stack.items()},
+                                            gen))
+        torch.cuda.synchronize()
+        runs[how] = (state, acc)
+    (chunk, acc_c), (single, acc_s) = runs["chunk"], runs["single"]
+    n = _check_states_equal(f"{name}: chunk vs single updates", chunk, single)
+    _check(all(acc_c[key] == v if key == "lr" else torch.equal(acc_c[key], v)
+               for key, v in acc_s.items()),
+           f"{name}: the chunk's summed metrics differ from the single updates'")
+    want = {"fused_loss_fwd": k, "fused_loss_bwd": k, "warp_cubic": k}
+    _check(launches == want, f"{name}: rank {ranks.rank} counted {launches} in a chunk of "
+                             f"{k}, want {want}")
+    _check(_equal_on_ranks(ranks, chunk), f"{name}: the ranks' states differ")
+    return launches, n, float(acc_c["loss_total"]) / k
+
+
+def _graph_rank(rank, devices, store, work, raws_path, n_space=1):
+    """One rank of ``train (ranks, graph)`` (a spawned process, or the main
+    process for a one-rank world).  On NCCL: the replayed update on the
+    ranks held against the eager update on the same ranks
+    (``_hold_replay_once`` with ``ranks``: in bf16 in the default mode
+    beside four eager repeats, and in float32 under deterministic
+    algorithms beside a spread of 0), then ``_time_replay_and_eager`` on
+    the ranks, whose graph path must count one ``fused_loss_fwd``,
+    ``fused_loss_bwd`` and ``warp_cubic`` launch a rank an update (each
+    replay adds what its capture counted: ``StepGraph``) and nothing else.
+    On gloo: ``_chunk_on_gloo``.  Writes ``rank<r>.json``."""
+    import dataclasses
+
+    from pacingpseudo_torch.aug.engine import make_train_augment_fn
+    from pacingpseudo_torch.ops import fused_convbn as fc
+    from pacingpseudo_torch.ops import fused_loss as fl
+    from pacingpseudo_torch.ops import warp_cubic as wc
+    from pacingpseudo_torch.ops import warp_table as wt
+    from pacingpseudo_torch.parallel import mesh
+    from pacingpseudo_torch.train.loop import _augment_params
+    from pacingpseudo_torch.train.step import uses_graph
+
+    ranks = mesh.init_rank_group(rank, devices, store, n_space)
+    dev = ranks.device
+    name = (f"train (ranks, graph), data {ranks.n_data} x space {n_space} over "
+            f"{ranks.backend}")
+    config = _experiment_config()
+    augment_fn = make_train_augment_fn(*_augment_params(config), True)
+    raws = [{k: v.to(dev) for k, v in r.items()} for r in torch.load(raws_path)]
+    counters = (fl, wt, wc, fc)
+    out = {"backend": ranks.backend}
+    if uses_graph(dev, len(raws), ranks.backend):
+        out["hold bf16, default mode"] = _hold_replay_once(
+            f"{name} (default mode)", config, augment_fn, raws[:2], dev, EAGER_RUNS_DEFAULT,
+            ranks)
+        _release_memory()
+        modes = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        _deterministic_f32(True)
+        try:
+            out["hold float32, deterministic"] = _hold_replay_once(
+                f"{name} (float32, deterministic)",
+                dataclasses.replace(config, compute_dtype="float32"), augment_fn, raws[:2],
+                dev, EAGER_RUNS, ranks)
+        finally:
+            torch.use_deterministic_algorithms(modes, warn_only=True)
+            _deterministic_f32(False)
+        _release_memory()
+        out["eager_ms"], out["graph_ms"], launches = _time_replay_and_eager(
+            name, config, augment_fn, raws, dev, counters, ranks)
+        out["graph_launches"] = {k: v for k, v in launches.items() if v}
+        updates = 2 * len(raws)
+        want = {"fused_loss_fwd": updates, "fused_loss_bwd": updates, "warp_cubic": updates}
+        _check(out["graph_launches"] == want,
+               f"{name}: rank {rank} counted {out['graph_launches']} in {updates} updates of "
+               f"the graph path, want {want}")
+    else:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        _deterministic_f32(True)
+        try:
+            out["chunk_launches"], out["tensors"], out["loss_total"] = _chunk_on_gloo(
+                name, config, augment_fn, raws, dev, counters, ranks)
+        finally:
+            torch.use_deterministic_algorithms(False, warn_only=True)
+            _deterministic_f32(False)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.close_rank_group(ranks)
+
+
+def phase_ranks_graph(dev, data_root, raws, smi, one_card):
+    """``train (ranks, graph)``: ``steps_per_dispatch`` on ranks, the
+    Experiment session at full width (the CHAOS shape, batch 12, bf16).
+    With two cards or more, NCCL ranks a card each, data 2, space 2 and,
+    with four, data 2 x space 2: the replayed update (collectives, kernels
+    1, 2 and 6b, the optimizer, captured in one ``StepGraph``) held against
+    the eager update on the same ranks, launches and replicas after the
+    replays, and the median replayed and eager update on the ranks beside
+    ``one_card`` (one card's eager and replayed ms in this run).  With one
+    card, a one-rank NCCL world in this process runs the same (its
+    world-axis collectives captured), and two gloo ranks sharing the card
+    run a chunk of ``GR_TIMED`` updates, which the rule steps eagerly,
+    against as many single updates.  The loop on NCCL ranks with
+    ``steps_per_dispatch`` 8 is ``phase_data_parallel``'s.  Returns each
+    path's launches by rank."""
+    from pacingpseudo_torch.parallel import mesh
+
+    name = "train (ranks, graph)"
+    batch = _experiment_config().batch_size
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        grids = [(2, 1), (2, 2)] + ([(4, 2)] if cards >= 4 else [])
+        runs = [(f"data {w // s} x space {s}", [torch.device("cuda", i) for i in range(w)],
+                 s, True) for w, s in grids]
+        print(f"{name}: {cards} cards: NCCL ranks a card each, captured", flush=True)
+    else:
+        runs = [("one-rank NCCL world", [dev], 1, False),
+                ("two gloo ranks sharing the card", [dev, dev], 1, True)]
+        print(f"{name}: one card: a one-rank NCCL world captures its world-axis "
+              f"collectives (sync BN, the losses' normalisers, gradients, metrics); two "
+              f"ranks on one card run over gloo, which cannot be captured, so they run a "
+              f"chunk of {len(raws)} as eager steps", flush=True)
+    root = os.path.join(data_root, "ranks_graph")
+    os.makedirs(root)
+    raws_path = os.path.join(root, "raws.pt")
+    torch.save([{k: v.cpu() for k, v in r.items()} for r in raws], raws_path)
+    paths = {}
+    for tag, devices, n_space, spawn in runs:
+        work = os.path.join(root, tag.replace(" ", "_"))
+        os.makedirs(work)
+        args = (devices, os.path.join(work, "store"), work, raws_path, n_space)
+        _release_memory()
+        t0 = time.perf_counter()
+        if spawn:
+            mesh.spawn_ranks(_graph_rank, len(devices), args)
+        else:
+            _graph_rank(0, *args)
+        results = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                   for r in range(len(devices))]
+        seconds = time.perf_counter() - t0
+        backend = results[0]["backend"]
+        if "graph_ms" in results[0]:
+            for key in ("hold bf16, default mode", "hold float32, deterministic"):
+                print(f"{name}, {tag} ({backend}), {key}: {results[0][key]}", flush=True)
+            replay, eager = results[0]["graph_ms"], results[0]["eager_ms"]
+            print(f"{name}, {tag} ({backend}): {smi}: median of {len(raws)} updates: "
+                  f"replayed {replay:.3f} ms ({batch * 1e3 / replay:.1f} slices/s), eager "
+                  f"{eager:.3f} ms on the same ranks; one card in this run: replayed "
+                  f"{one_card[1]:.3f} ms, eager {one_card[0]:.3f} ms; medians by rank: "
+                  f"replayed {[round(r['graph_ms'], 3) for r in results]}, eager "
+                  f"{[round(r['eager_ms'], 3) for r in results]}; launches a rank in "
+                  f"{2 * len(raws)} updates of the graph path (1 eager, the rest replays) "
+                  f"{[r['graph_launches'] for r in results]}; parameters, BN statistics "
+                  f"and bank equal on the ranks; {seconds:.1f} s with the ranks' start",
+                  flush=True)
+            for r, res in enumerate(results):
+                paths[f"{name}, {tag}, rank {r}"] = res["graph_launches"]
+        else:
+            print(f"{name}, {tag} ({backend}): a chunk of {len(raws)} eager steps == "
+                  f"{len(raws)} single updates bit for bit (float32, deterministic; "
+                  f"{results[0]['tensors']} tensors of state and the summed metrics; mean "
+                  f"loss_total {results[0]['loss_total']:.6f}); launches a rank "
+                  f"{[r['chunk_launches'] for r in results]}; {seconds:.1f} s with the "
+                  f"ranks' start", flush=True)
+            for r, res in enumerate(results):
+                paths[f"{name}, {tag}, rank {r}"] = res["chunk_launches"]
     return paths
 
 
@@ -3185,11 +3440,12 @@ def main() -> None:
         ub_fused_launches, ub_routes, ub_fused_ms = _phase_fused_train(
             fc, "train (raw, upper bound, fused conv)", counters, ub_fused_kernels,
             ub_fused_routes, dev, raw_batches, ub_augment_fn, ub_config)
-        graph_paths = phase_graph_train(dev, counters, raw_batches, augment_fn,
-                                        ub_augment_fn, fc, smi)
+        graph_paths, one_card = phase_graph_train(dev, counters, raw_batches, augment_fn,
+                                                  ub_augment_fn, fc, smi)
         replay_raw = next(raw_batches)
         dp_raws = [next(raw_batches), next(raw_batches)]
         sp_raws = [next(raw_batches), next(raw_batches)]
+        rg_raws = [next(raw_batches) for _ in range(GR_TIMED)]
         raw_batches.close()
         print(f"train (raw, upper bound): {smi}: median step {ub_ms:.3f} ms "
               f"({ub_config.batch_size * 1e3 / ub_ms:.1f} slices/s), {ub_fused_ms:.3f} ms "
@@ -3212,7 +3468,9 @@ def main() -> None:
         dp_launches = phase_data_parallel(dev, loop_root, dp_raws, smi, raw_ms)
         _release_memory()
         sp_launches = phase_height_sharded(dev, loop_root, sp_raws, smi, raw_ms)
-        del dp_raws, sp_raws
+        _release_memory()
+        rg_launches = phase_ranks_graph(dev, loop_root, rg_raws, smi, one_card)
+        del dp_raws, sp_raws, rg_raws
 
         # Profiler sessions last: none is followed by a timed phase.
         check_bn_sums_launches(fc, dev)
@@ -3225,7 +3483,7 @@ def main() -> None:
              "train (raw, upper bound, fused conv)": ub_fused_launches,
              **graph_paths, "loop (resident, graph)": loop_launches,
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
-             **sp_launches}
+             **sp_launches, **rg_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

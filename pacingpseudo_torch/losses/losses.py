@@ -40,7 +40,8 @@ def _mean(loss, ranks):
     element count, summed over the ranks (height shards may be unequal)."""
     if ranks is None:
         return loss.mean()
-    return loss.sum() / ranks.sum(loss.new_tensor(float(loss.numel())))
+    # new_full fills on the device: no upload, so a CUDA graph captures it
+    return loss.sum() / ranks.sum(loss.new_full((), float(loss.numel())))
 
 
 def _masked_mean(loss, valid_mask, ranks=None):

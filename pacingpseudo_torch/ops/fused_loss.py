@@ -313,9 +313,11 @@ class _FusedPacingLosses(torch.autograd.Function):
         out = fused_loss_forward(logits_weak, logits_strong, scb_target,
                                  valid_mask, ignore_index)
         if ranks is not None:
-            cnt, msum = ranks.sum(out[[1, 4]]).clamp_min(_EPS).unbind()
+            # slices and stacks, no index list: a list would be uploaded,
+            # which a CUDA graph capture refuses
+            cnt, msum = ranks.sum(out[1:5:3]).clamp_min(_EPS).unbind()
             den = torch.stack([cnt, msum, msum])
-            out = torch.cat([out[:5], out[[0, 2, 3]] / den, den])
+            out = torch.cat([out[:5], torch.stack([out[0], out[2], out[3]]) / den, den])
         ctx.save_for_backward(logits_weak, logits_strong, scb_target,
                               valid_mask, out)
         ctx.ignore_index = ignore_index

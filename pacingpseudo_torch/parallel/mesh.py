@@ -33,6 +33,13 @@ NCCL, on the CPU gloo.
 The group is an explicit object (:class:`RankGroup`) that the loop passes
 down to the step, the losses and the model's modules
 (:func:`attach_ranks`); nothing reads a process-global group.
+
+Every collective on the train step's path can be captured in a CUDA graph
+(``train/graph.py``) where the backend is NCCL: each is one ``all_reduce``
+on tensors the step allocates on the card, with no host read and no
+upload, issued in the same order on every rank.  Gloo copies CUDA tensors
+through the host and cannot be captured: ranks on gloo step eagerly
+(``train.step.uses_graph``).
 """
 from __future__ import annotations
 
@@ -152,8 +159,9 @@ def backend_for(devices: Sequence[torch.device]) -> str:
 
 class RankGroup:
     """One rank's view of a world of ``n_data x n_space`` ranks: the
-    ``torch.distributed`` group, ``world``, ``rank``, this rank's
-    ``device``, and its place on the grid, numbered as JAX's
+    ``torch.distributed`` group, its ``backend`` (``"nccl"`` or
+    ``"gloo"``), ``world``, ``rank``, this rank's ``device``, and its
+    place on the grid, numbered as JAX's
     ``train_mesh`` lays out its devices (``parallel/spatial.py:42-52``):
     ``data_index = rank // n_space``, ``space_index = rank % n_space``.
 
@@ -165,6 +173,7 @@ class RankGroup:
 
     def __init__(self, group, device, n_space: int = 1, space_group=None, data_group=None):
         self.group = group
+        self.backend = str(dist.get_backend(group))
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.device = torch.device(device)

@@ -30,8 +30,12 @@ n_space`` of the batch and heights ``r % n_space`` of the image, as JAX's
 Every exchange is an ``all_reduce`` SUM over the space group of a
 zero-filled buffer in which each rank fills its own slot (exact: one rank
 alone contributes each element), the one collective that gloo runs on CUDA
-tensors as well.  :func:`spatial_forward` and :func:`shard_spatial` are the
-inference counterparts of JAX's.
+tensors as well.  On NCCL ranks a train step is captured in a CUDA graph
+with its exchanges (``train/graph.py``): a halo's rows are read and
+written as slices of the buffer, with no index tensor to upload, and the
+resize matrices are uploaded once a shape, by the eager update before the
+capture (:func:`_upload`).  :func:`spatial_forward` and
+:func:`shard_spatial` are the inference counterparts of JAX's.
 """
 from __future__ import annotations
 
@@ -170,19 +174,38 @@ def _fill_slot(buf, x, plan: _HaloPlan, index: int):
     slot[..., 2 * k - m:, :] = x[..., h - m:, :]
 
 
-@functools.lru_cache(maxsize=None)
-def _on(values: Tuple, device, dtype=torch.long) -> torch.Tensor:
-    """A small constant tensor on ``device``, made once."""
-    return torch.tensor(values, dtype=dtype, device=device)
+def _runs(idx: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+    """``idx`` (buffer rows, ``-1`` a zero row) as ``(first, stop, rows)``
+    runs: consecutive buffer rows ``[first, stop)``, or ``rows`` zero rows
+    where ``first`` is -1."""
+    out = []
+    for i in idx:
+        if out and ((i < 0 and out[-1][0] < 0)
+                    or (i >= 0 and out[-1][0] >= 0 and out[-1][1] == i)):
+            first, stop, n = out[-1]
+            out[-1] = (first, stop + (i >= 0), n + 1)
+        else:
+            out.append((i, i + 1, 1) if i >= 0 else (-1, -1, 1))
+    return out
 
 
 def _read(buf, idx: Tuple[int, ...]):
-    """The buffer rows ``idx`` (``-1`` a zero row)."""
-    got = buf.index_select(-2, _on(tuple(max(i, 0) for i in idx), buf.device))
-    if min(idx) < 0:
-        live = _on(tuple(float(i >= 0) for i in idx), buf.device, buf.dtype)
-        got = got * live.view(-1, 1)
-    return got
+    """The buffer rows ``idx`` (``-1`` a zero row), as slices of ``buf``:
+    no index tensor, so nothing is uploaded (a CUDA graph captures it)."""
+    parts = [buf[..., first:stop, :] if first >= 0 else
+             buf.new_zeros((*buf.shape[:-2], n, buf.shape[-1]))
+             for first, stop, n in _runs(idx)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def _write(buf, idx: Tuple[int, ...], rows):
+    """``buf``'s rows ``idx`` set to ``rows``' (the rows of a ``-1`` are
+    dropped): the transpose of :func:`_read`."""
+    j = 0
+    for first, stop, n in _runs(idx):
+        if first >= 0:
+            buf[..., first:stop, :] = rows[..., j:j + n, :]
+        j += n
 
 
 class _HaloRows(torch.autograd.Function):
@@ -207,10 +230,7 @@ class _HaloRows(torch.autograd.Function):
         buf = grad.new_zeros((*grad.shape[:-2], 2 * k * plan.n_space, grad.shape[-1]),
                              dtype=torch.float32)
         for idx, rows in ((plan.above, grad[..., :k, :]), (plan.below, grad[..., k + h:, :])):
-            live = tuple(j for j, i in enumerate(idx) if i >= 0)
-            if live:
-                dst = _on(tuple(idx[j] for j in live), grad.device)
-                buf.index_copy_(-2, dst, rows.index_select(-2, _on(live, grad.device)).float())
+            _write(buf, idx, rows.float())
         ranks.sum_(buf, "space")
         dx = grad[..., k:k + h, :].float()
         m = min(k, h)
@@ -259,6 +279,18 @@ def interp_matrix(in_size: int, out_size: int) -> torch.Tensor:
     return torch.from_numpy(w)
 
 
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``, made once a key by the caches below.  An upload
+    from host memory cannot be captured in a CUDA graph: the eager update
+    before a capture (``train/graph.py``) runs every shape the captured
+    one does and fills the caches, and a miss inside a capture raises
+    here rather than inside CUDA."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a resize matrix of height sharding was first needed inside "
+                           "a CUDA graph capture; the eager update before it makes it")
+    return t.to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _shard_matrix(split: HeightSplit, h_in: int, h_out: int, device) -> torch.Tensor:
     """The rows of the global height-interpolation matrix that produce this
@@ -273,12 +305,12 @@ def _shard_matrix(split: HeightSplit, h_in: int, h_out: int, device) -> torch.Te
                          f"beyond one halo row of shard {split.index} of {split.runs}")
     out = torch.zeros((rows.shape[0], b - a + 2))
     out[:, lo - (a - 1):hi - (a - 1)] = rows[:, lo:hi]
-    return out.to(device)
+    return _upload(out, device)
 
 
 @functools.lru_cache(maxsize=None)
 def _width_matrix(w_in: int, w_out: int, device) -> torch.Tensor:
-    return interp_matrix(w_in, w_out).to(device)
+    return _upload(interp_matrix(w_in, w_out), device)
 
 
 def resize_align_corners(x, out_h: int, out_w: int, shard: Shard):

@@ -35,6 +35,23 @@ What a replay must not bake in, and what it does about it:
 * **Inputs.**  The step reads static tensors that the host refills before
   each replay (a raw batch, or an index block into a resident pool); its
   metrics are static outputs that the next replay overwrites.
+* **Ranks.**  A step with NCCL ranks (``parallel/mesh.py``) is captured
+  with its collectives, the same update on every rank: the key below
+  changes at the same update everywhere, so every rank captures and
+  replays in step, and its collectives keep one order.  The eager update
+  before each capture creates every communicator the step uses (NCCL makes
+  one at its first collective, which a capture cannot do), and fills the
+  caches of device constants that height sharding keeps
+  (``parallel/spatial.py``; an upload inside a capture raises there).  The
+  capture runs in ``capture_error_mode="thread_local"``: in the default
+  ``"global"`` mode CUDA refuses every thread's unsafe calls while a
+  capture is under way, and ProcessGroupNCCL's watchdog thread queries the
+  events of earlier collectives all along; ``"thread_local"`` holds only
+  the capturing thread to the rule, which is the one that records the
+  step.  Eager collectives run on the same communicators between
+  replays (the validation's sums, the sharded pool's gather of the figure
+  batch), which NCCL allows.  Ranks on gloo are never captured
+  (``train.step.uses_graph``).
 * **Memory.**  A :class:`StepGraph` holds one graph at a time.  The next
   one (the frozen-BN step, the next epoch) is captured into the old one's
   private pool, so it reuses the memory the old one's temporaries held,
@@ -131,7 +148,8 @@ class StepGraph:
             n = state.step
             counters = _launch_counters()
             before = [dict(c) for c in counters]
-            graph.capture_begin(pool=None if old is None else old.pool())
+            graph.capture_begin(pool=None if old is None else old.pool(),
+                                capture_error_mode="thread_local")
             try:
                 captured = step(state, to_batch(static), generator)
             finally:

@@ -37,9 +37,10 @@ How a step reaches the device (JAX's ``loop.py:407-479,531-582``):
   (``npz_dataset.shrink_raw``) and stacked into one upload a dispatch;
 * ``steps_per_dispatch``: a dispatch runs ``chunk = min(steps_per_dispatch,
   steps_per_epoch)`` updates, the epoch's last one ``steps_per_epoch %
-  chunk``.  On a card with ``chunk > 1`` each update is a replay of the
-  step captured as a CUDA graph (``train/graph.py``); with ``chunk == 1``
-  and on the CPU the eager step runs.  Every setting walks the same
+  chunk``.  On a card with ``chunk > 1`` (alone, or on NCCL ranks) each
+  update is a replay of the step captured as a CUDA graph
+  (``train/graph.py``); with ``chunk == 1``, on the CPU and on gloo ranks
+  the eager step runs.  Every setting walks the same
   batches with the same draws: on the CPU the final state and the metric
   lines are equal bit for bit.
 
@@ -67,9 +68,12 @@ The training pool is sharded over the data axis and replicated across the
 space axis (``parallel.mesh.stage_resident_pool``), its budget ``n_data x
 6 GiB``; validation splits each block's rows over the data axis and its
 heights over the space axis and sums the results, each sample counted
-once.  Steps run eagerly (no CUDA graph), and the fused ConvLayer is off
-for the run on every rank, as in JAX, because its kernels' BN statistics
-are the rank's own.  Rank 0 alone writes ``log.txt``, ``config.json``,
+once.  ``steps_per_dispatch`` holds on ranks as on one device: on NCCL
+ranks with ``chunk > 1`` each update is a replay of the step captured with
+its collectives, on gloo ranks the eager step runs (``train.step.
+uses_graph``; the log says which).  The fused ConvLayer is off for the run
+on every rank, as in JAX, because its kernels' BN statistics are the
+rank's own.  Rank 0 alone writes ``log.txt``, ``config.json``,
 ``valdice.npz``, TensorBoard and the checkpoints, whose layout is the
 single-device one: a checkpoint of any split resumes in a single-device run
 and the other way round.
@@ -499,11 +503,8 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         mesh.replicate(state.model, ranks)
 
     # Dispatch: `chunk` updates a call; the resident pool or the loader's
-    # stream (JAX's loop.py:407-437).  Ranks step eagerly: their collectives
-    # are not captured in CUDA graphs.
+    # stream (JAX's loop.py:407-437), on ranks as on one device.
     chunk = min(max(1, int(config.steps_per_dispatch)), steps_per_epoch)
-    if ranks is not None:
-        chunk = 1
     resident = use_resident(config.device_resident_data, len(train_ds),
                             train_ds.canvas_size, n_data)
     train_pool, pool_gather = None, gather
@@ -517,7 +518,9 @@ def _train_driver(config: ExperimentConfig, data_root: str,
             train_pool = mesh.stage_resident_pool(train_ds, ranks)
             pool_gather = mesh.make_resident_gather(ranks)
     logging.info("steps per dispatch %d (%s), training data %s", chunk,
-                 "CUDA graph replays" if uses_graph(device, chunk) else "eager steps",
+                 "CUDA graph replays"
+                 if uses_graph(device, chunk, None if ranks is None else ranks.backend)
+                 else "eager steps",
                  "resident on the device" if resident else "streamed")
 
     # One StepGraph for both steps: it holds the graph of the step that runs.

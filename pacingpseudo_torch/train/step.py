@@ -23,8 +23,10 @@ Chunked dispatch (``step.py:235-305`` of the JAX package):
 :func:`make_chunked_train_step` and :func:`make_resident_chunked_train_step`
 run up to ``chunk`` updates a call, on stacked raw batches or on index
 blocks into a resident pool, and add their metrics on the device.  On a
-card with ``chunk > 1`` each update is a replay of one captured CUDA graph
-of the step (``train/graph.py``); elsewhere the eager step runs.
+card with ``chunk > 1``, alone or as one of NCCL ranks, each update is a
+replay of one captured CUDA graph of the step (``train/graph.py``), its
+collectives included; elsewhere, ranks on gloo included, the eager step
+runs (:func:`uses_graph`).
 
 Data-parallel and height-sharded steps (``ranks``, a ``parallel.mesh.
 RankGroup`` of ``n_data x n_space`` ranks): every rank takes the **global**
@@ -39,7 +41,8 @@ axes, the scribble kept whole from before the cut), and the gradients and
 metrics are summed over the ranks before the update, which is then the
 same on every rank.  So one update is the single-device update on the
 global batch (the JAX package's sharded step, ``pacingpseudo_tpu/parallel/
-mesh.py`` and ``spatial.py``).  These steps run eagerly.
+mesh.py`` and ``spatial.py``).  The chunked steps take them as they take
+the single-device step.
 """
 from __future__ import annotations
 
@@ -289,6 +292,7 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
         return metrics
 
     train_step.scalars = lambda step: step_scalars(config, step, steps_per_epoch)
+    train_step.ranks = ranks
     return train_step
 
 
@@ -301,11 +305,15 @@ def _accumulate(acc, metrics):
     return {k: acc[k] + v for k, v in metrics.items()}
 
 
-def uses_graph(device, chunk: int) -> bool:
-    """Whether a chunked step replays a CUDA graph: on a card, ``chunk > 1``.
-    Elsewhere, and with ``chunk == 1`` (JAX's plain single step), the eager
-    step runs."""
-    return torch.device(device).type == "cuda" and chunk > 1
+def uses_graph(device, chunk: int, backend: Optional[str] = None) -> bool:
+    """Whether a chunked step replays a CUDA graph: on a card, ``chunk > 1``,
+    and either no ranks (``backend`` None) or ranks on NCCL, whose
+    collectives a graph captures.  Gloo copies CUDA tensors through the
+    host and cannot be captured: its ranks run the eager step, as the CPU
+    does, and so does ``chunk == 1`` (JAX's plain single step).  A rule,
+    not a fallback: where it says graph, a capture that fails raises."""
+    return (torch.device(device).type == "cuda" and chunk > 1
+            and backend in (None, "nccl"))
 
 
 def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGraph]):
@@ -313,8 +321,11 @@ def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGrap
     chunk`` leading entries of ``xs`` (a dict of stacked device tensors):
     update ``k`` reseeds the generators from ``(seed, state.step)``
     (:func:`seed_step`) and steps on ``to_batch({key: xs[key][k]})``, as
-    a replay of ``graph`` (a new one when None) where :func:`uses_graph`."""
+    a replay of ``graph`` (a new one when None) where :func:`uses_graph`
+    for the step's ranks."""
     graph = StepGraph() if graph is None else graph
+    ranks = getattr(step, "ranks", None)
+    backend = None if ranks is None else ranks.backend
 
     def run(state, xs: Dict[str, torch.Tensor], generator: torch.Generator, seed: int,
             acc: Optional[Dict] = None):
@@ -326,7 +337,7 @@ def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGrap
         def reseed(n):
             seed_step(generator, device, seed, n)
 
-        graphed = uses_graph(device, chunk)
+        graphed = uses_graph(device, chunk, backend)
         for k in range(k_steps):
             inputs = {key: v[k] for key, v in xs.items()}
             if graphed:
@@ -349,10 +360,12 @@ def make_chunked_train_step(step: Callable, chunk: int, graph: Optional[StepGrap
     (``npz_dataset.stack_to_device``), update ``k`` draws from
     ``generator`` and the device's default generator reseeded from
     ``(seed, state.step)``, and ``acc`` comes back with the updates'
-    metrics added in order (``lr`` as a host float).  On a card with
-    ``chunk > 1`` each update replays the step's CUDA graph (``graph``, a
+    metrics added in order (``lr`` as a host float).  Where
+    :func:`uses_graph` (a card, ``chunk > 1``, no ranks or NCCL ranks)
+    each update replays the step's CUDA graph (``graph``, a
     :class:`~pacingpseudo_torch.train.graph.StepGraph` that other chunked
     steps may share; a new one when None); otherwise the eager step runs.
+    A step with ranks takes its rank's block of each global batch itself.
     """
     return _chunk_runner(step, chunk, lambda raw: raw, graph)
 
@@ -363,7 +376,8 @@ def make_resident_chunked_train_step(step: Callable, chunk: int,
                                      pool_gather: Callable = gather):
     """Up to ``chunk`` train steps a call on the resident ``pool``: the
     counterpart of JAX's ``make_resident_chunked_train_step``
-    (``step.py:273-305``) on one device.  The pool is bound here, where
+    (``step.py:273-305``), on one device or, for a step with ranks, on a
+    rank's shard of the pool (JAX's ``mesh=``).  The pool is bound here, where
     JAX's step takes it with each call: a captured step gathers from the
     tensors it was captured with.
 

@@ -15,7 +15,11 @@ against ``pacingpseudo_tpu`` on the CPU, float32, 64x64 canvases, init_ch 8.
   two float32 forwards add in another order); ``dicearr`` and ``hd95arr``
   are then equal to 1e-6 on the slices whose predictions are equal, and
   the ``uids`` and the per-patient aggregation equal.
-* JAX's ``tools/study_summary.py`` reads the port's ``eval_data.npz``.
+* The port's ``tools/study_summary.py`` and JAX's read the port's
+  ``eval_data.npz``; on a study root of three arms (a seeded
+  ``valdice.npz`` with a NaN and trailing zeros, the port's
+  ``eval_data.npz``, the same without ``uids``) the two give the same
+  rows (to float rounding), the same table and the same ``--json`` file.
 * The checkpoint layouts: the JAX importer reads an upper-bound
   checkpoint of the port into the tree of JAX's upper-bound state.
 * ``python -m pacingpseudo_torch.cli.inference`` resolves a run
@@ -28,8 +32,10 @@ against ``pacingpseudo_tpu`` on the CPU, float32, 64x64 canvases, init_ch 8.
 import argparse
 import dataclasses
 import importlib
+import json
 import os
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +48,7 @@ from pacingpseudo_tpu.cli import inference as jax_cli
 from pacingpseudo_tpu.evals import dice as jax_dice
 from pacingpseudo_tpu.evals import infer as jax_infer
 from pacingpseudo_tpu.models import PacingPseudoModel as JaxPacing
-from pacingpseudo_tpu.tools import study_summary
+from pacingpseudo_tpu.tools import study_summary as jax_summary
 from pacingpseudo_tpu.tools.torch_import import convert_state_dict, load_torch_checkpoint
 from pacingpseudo_torch.aug.engine import eval_preprocess_batch, eval_preprocess_image
 from pacingpseudo_torch.cli import inference as cli
@@ -53,6 +59,7 @@ from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
 from pacingpseudo_torch.evals import dice, hd, infer
 from pacingpseudo_torch.train import checkpoint as ckpt
 from pacingpseudo_torch.train.state import create_train_state
+from pacingpseudo_torch.tools import study_summary
 from pacingpseudo_torch.train.step import make_upper_bound_train_step
 
 jax_hd = importlib.import_module("pacingpseudo_tpu.evals.hd")   # the package exports a function hd
@@ -268,15 +275,64 @@ def test_reference_layout_gives_the_same_output(runs):
         np.testing.assert_array_equal(b[key][same], a[key][same])
 
 
-def test_study_summary_reads_the_port_artifact(runs, tmp_path):
+@pytest.mark.parametrize("summary", [study_summary, jax_summary], ids=["port", "jax"])
+def test_study_summary_reads_the_port_artifact(runs, tmp_path, summary):
     got, run_dir = runs["out"]["port"]
     dest = tmp_path / "Upperbound" / "outputs" / "Inference" / "chaost1" / "run-fold1"
     dest.mkdir(parents=True)
     shutil.copy(run_dir / "eval_data.npz", dest / "eval_data.npz")
-    summary = study_summary.summarise_arm(str(tmp_path), "Upperbound", "chaost1")
-    assert np.isclose(summary["test_dice_slice"], study_summary.per_slice_dice(got["dicearr"]))
-    assert summary["n_patients"] == got["num_patients"] and summary["n_slices"] == 8
-    assert np.isclose(summary["test_dice_patient"], got["dice_per_patient"])
+    row = summary.summarise_arm(str(tmp_path), "Upperbound", "chaost1")
+    assert np.isclose(row["test_dice_slice"], summary.per_slice_dice(got["dicearr"]))
+    assert row["n_patients"] == got["num_patients"] and row["n_slices"] == 8
+    assert np.isclose(row["test_dice_patient"], got["dice_per_patient"])
+
+
+def _study_root(root, run_dir):
+    """Three arms: a seeded ``valdice.npz`` of 12 epochs (a NaN, the last
+    three never run), the port's ``eval_data.npz`` with a ``valdice.npz``,
+    and the same ``eval_data.npz`` without its ``uids`` alone."""
+    rs = np.random.RandomState(8)
+    for arm in ("Control", "Experiment"):
+        vd = np.concatenate([rs.rand(9), np.zeros(3)])
+        vd[2] = np.nan
+        os.makedirs(root / arm / "run-fold0")
+        np.savez(root / arm / "run-fold0" / "valdice", valdice=vd)
+    saved = dict(np.load(run_dir / "eval_data.npz"))
+    for arm, keys in (("Experiment", sorted(saved)),
+                      ("Upperbound", [k for k in saved if k != "uids"])):
+        dest = root / arm / "outputs" / "Inference" / "chaost1" / "run-fold0"
+        dest.mkdir(parents=True)
+        np.savez(dest / "eval_data", **{k: saved[k] for k in keys})
+
+
+def test_study_summary_equals_jax(runs, tmp_path, capsys, monkeypatch):
+    """The port's summary of a study root against JAX's: each row's values
+    to float rounding, the table and the ``--json`` file (read back) the
+    same."""
+    _study_root(tmp_path, runs["out"]["port"][1])
+    arms = ["Control", "Experiment", "Upperbound", "Missing"]
+    rows = [study_summary.summarise_arm(str(tmp_path), a, "chaost1") for a in arms]
+    want = [jax_summary.summarise_arm(str(tmp_path), a, "chaost1") for a in arms]
+    for got, ref in zip(rows, want):
+        assert sorted(got) == sorted(ref)
+        for k, v in ref.items():
+            assert got[k] == v if not isinstance(v, float) else np.isclose(got[k], v), k
+    assert rows[0]["epochs_completed"] == 9 and rows[0]["best_epoch"] != 2
+    assert rows[2]["test_dice_patient"] is None and rows[3] == {"arm": "Missing"}
+    assert study_summary.render_table(rows) == jax_summary.render_table(want)
+
+    argv = ["--root", str(tmp_path), "--arms", *arms]
+    study_summary.main([*argv, "--json", str(tmp_path / "port.json")])
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["study_summary", *argv, "--json",
+                                      str(tmp_path / "jax.json")])
+    jax_summary.main()
+    assert port_out == capsys.readouterr().out and "Experiment - Control" not in port_out
+    got_json, want_json = (json.load(open(tmp_path / f)) for f in ("port.json", "jax.json"))
+    assert [sorted(r) for r in got_json] == [sorted(r) for r in want_json]
+    for got, ref in zip(got_json, want_json):
+        for k, v in ref.items():
+            assert got[k] == v if not isinstance(v, float) else np.isclose(got[k], v), k
 
 
 def test_upper_bound_checkpoint_opens_in_the_jax_importer(tmp_path):

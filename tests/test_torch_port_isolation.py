@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
                    "pacingpseudo_torch.data.resident", "pacingpseudo_torch.train.graph",
                    "pacingpseudo_torch.cli.sweep", "pacingpseudo_torch.parallel.mesh",
                    "pacingpseudo_torch.parallel.spatial",
-                   "pacingpseudo_torch.data.native.loader"):
+                   "pacingpseudo_torch.data.native.loader",
+                   "pacingpseudo_torch.tools.study_summary"):
         assert module in loaded
     assert [m for m in loaded if _is_forbidden(m)] == []
 

@@ -29,12 +29,21 @@ float32, a global batch of 4 (2 rows a rank).  One spawn of
   agree with JAX's (read from Adam's first moment) within the one-device
   parity tests' bounds (1e-2 and 2e-2 of a leaf's norm) and with the
   one-process step's within 1e-2; BN statistics, the bank and the
-  parameters are equal on both ranks.
+  parameters are equal on both ranks;
+* a chunk of K = 2 updates on the 2 ranks (``steps_per_dispatch``),
+  resident (the sharded pool's gather) and streamed (the augmentation
+  inside), equals the same updates one at a time bit for bit: summed
+  metrics, state, Adam's moments, the bank; the resident chunk on a
+  pre-augmented pool is held against JAX's
+  ``make_resident_chunked_train_step(body, 2, mesh=data_mesh(2))``;
+* ``train.step.uses_graph``, the rule of which dispatch a chunk takes, on
+  a table of device x chunk x ranks' backend.
 
 Then the loop: 2 ranks against one process, ``device_resident_data`` on
 and off, within JAX's bound for its multi-device driver
 (``tests/test_driver_multidevice.py:74-75``: val loss rtol 1e-3, val Dice
-atol 5e-3); a 2-rank checkpoint resumed in one process, and a one-process
+atol 5e-3); on 2 ranks ``--steps_per_dispatch`` 2 against 1, bit for bit
+(checkpoints and metric lines); a 2-rank checkpoint resumed in one process, and a one-process
 checkpoint resumed by the CLI on 2 ranks (``--gpu cpu --num_devices 2
 --resume``); the splits with a space axis that the CLI runs (an explicit
 ``--spatial_shards 2``, the AUTO split of 4 devices at batch 6, a space
@@ -44,6 +53,7 @@ a card that does not exist.
 import dataclasses
 import glob
 import os
+import re
 import shutil
 from pathlib import Path
 
@@ -74,6 +84,7 @@ from pacingpseudo_torch.parallel import mesh
 from pacingpseudo_torch.tools.weights import from_jax_variables
 from pacingpseudo_torch.train import loop
 from pacingpseudo_torch.train.state import build_model
+from pacingpseudo_torch.train.step import uses_graph
 
 W, N, S, C, INIT_CH, HID = 2, 4, 64, 3, 8, 16
 STEPS_PER_EPOCH = 4
@@ -132,6 +143,41 @@ def _nhwc_batch(name):
             "valid_mask": (rs.rand(N, S, S, 1) > 0.2).astype(np.float32)}
 
 
+K = 2                 # updates a chunk
+
+
+def _chunk_pool():
+    """A pre-augmented pool of 8 samples (NHWC numpy) and the (K, N) index
+    blocks of a chunk, in a shuffled order."""
+    rs = np.random.RandomState(7)
+    n = 2 * N
+    pool = {"image": rs.randn(n, S, S, 1).astype(np.float32),
+            "image_strong": rs.randn(n, S, S, 1).astype(np.float32),
+            "scribble": np.eye(C + 1, dtype=np.float32)[rs.randint(0, C + 1, (n, S, S))],
+            "valid_mask": (rs.rand(n, S, S, 1) > 0.2).astype(np.float32)}
+    return pool, rs.permutation(n)[:K * N].reshape(K, N).astype(np.int32)
+
+
+def _raw_batch(rs):
+    """A raw canvas batch of N 32x32 slices of several live sizes."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    label = rs.randint(0, C, (N, 32, 32)).astype(np.float32)
+    return {"image": t(rs.randn(N, 32, 32).astype(np.float32)), "label": t(label),
+            "scribble": t(np.where(rs.rand(N, 32, 32) < 0.2, label, C).astype(np.float32)),
+            "size": t(np.array([[32, 32], [30, 28], [32, 20], [25, 32]], np.int32))}
+
+
+def chunk_inputs():
+    """The inputs of ``workers.chunk_runs``: the pacing session from its
+    seeded state, the pool and its blocks, and K raw batches."""
+    pool, blocks = _chunk_pool()
+    raws = [_raw_batch(np.random.RandomState(20 + k)) for k in range(K)]
+    return {"chunk_config": CONFIGS["pacing"], "chunk_sd0": _state_dict0("pacing"),
+            "chunk_spe": STEPS_PER_EPOCH, "chunk_pool": {k: _nchw(v) for k, v in pool.items()},
+            "chunk_blocks": torch.from_numpy(blocks),
+            "chunk_raw": {k: torch.stack([r[k] for r in raws]) for k in raws[0]}}
+
+
 def _unit_inputs(pool_files):
     rs = np.random.RandomState(0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
@@ -162,6 +208,7 @@ def _unit_inputs(pool_files):
         inp[f"{name}_config"] = CONFIGS[name]
         inp[f"{name}_sd0"] = _state_dict0(name)
         inp[f"{name}_batch"] = {k: _nchw(v) for k, v in _nhwc_batch(name).items()}
+    inp.update(chunk_inputs())
     return inp
 
 
@@ -339,6 +386,107 @@ def test_step_matches_one_process(units, name):
     _assert_grads_close(res[0][name][2], want[2])
 
 
+def assert_chunks_equal_single_updates(results, path):
+    """On every rank the chunk equals its single updates bit for bit: the
+    summed metrics, the model's state (BN statistics and bank included)
+    and Adam's moments; and the ranks' states are equal."""
+    for res in results:
+        (acc_c, st_c), (acc_s, st_s) = (res["chunk"][(path, how)] for how in ("chunk", "single"))
+        assert sorted(acc_c) == sorted(acc_s)
+        for k, v in acc_s.items():
+            assert acc_c[k] == v if k == "lr" else torch.equal(acc_c[k], v), k
+        assert sorted(st_c) == sorted(st_s) and any(k.endswith("exp_avg_sq") for k in st_s)
+        for k, v in st_s.items():
+            assert torch.equal(st_c[k], v), k
+    first = results[0]["chunk"][(path, "chunk")][1]
+    for res in results[1:]:
+        assert all(torch.equal(res["chunk"][(path, "chunk")][1][k], v) for k, v in first.items())
+
+
+@pytest.mark.parametrize("path", ["resident", "streamed"])
+def test_chunk_on_ranks_equals_single_updates(units, path):
+    """A chunk of K = 2 updates on 2 ranks, resident (the sharded pool's
+    gather inside) and streamed (the augmentation inside, reseeded from
+    (seed, step) before each update), against the same updates one at a
+    time."""
+    _, res = units
+    steps = [v for k, v in res[0]["chunk"][(path, "chunk")][1].items() if k.endswith(".step")]
+    assert steps and all(float(v) == K for v in steps)      # Adam took K steps
+    assert_chunks_equal_single_updates(res, path)
+
+
+def _jax_chunk():
+    """JAX's chunked step on a 2-device data mesh over the same pool
+    (sharded as ``stage_resident_pool`` shards it) and index blocks, from
+    the same state: ``(summed metrics, new state_dict)``."""
+    from pacingpseudo_tpu.parallel import stage_resident_pool
+    from pacingpseudo_tpu.train.step import make_resident_chunked_train_step as jax_chunked
+
+    sd0 = _state_dict0("pacing")
+    pool, blocks = _chunk_pool()
+    params, stats, bank = convert_state_dict({k: v.numpy() for k, v in sd0.items()})
+    config = JaxConfig(**CONFIGS["pacing"]).validate()
+    model = JaxPacing(num_classes=C, init_ch=INIT_CH, do_aux_path=True, hid_ch=HID,
+                      s2d_hires=False, dtype=jnp.float32)
+    tx = jax_optim.make_optimizer(config, STEPS_PER_EPOCH)
+    state = JaxState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                     opt_state=tx.init(params), memory_bank=jnp.asarray(bank))
+    body = jax_pacing_step(config, model, tx, STEPS_PER_EPOCH, jit=False)
+    dmesh = data_mesh(2)
+    args = (replicate(state, dmesh), stage_resident_pool(pool, dmesh), jnp.asarray(blocks),
+            jax.random.key(0, impl="rbg"))
+    new, metrics = jax_chunked(body, K, mesh=dmesh).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+    assert int(new.step) == K
+    return ({k: float(v) for k, v in _np(metrics).items()},
+            from_jax_variables(_np(new.params), _np(new.batch_stats),
+                               np.array(new.memory_bank)))
+
+
+def test_chunk_on_ranks_matches_jax_chunk(units):
+    """The resident chunk on 2 ranks (a pre-augmented pool, no
+    augment_fn) against JAX's ``make_resident_chunked_train_step(body, 2,
+    mesh=data_mesh(2))``, by ``test_step_matches_jax_sharded_step``'s
+    bounds for what they hold after two updates: the metrics summed over
+    the chunk rtol 2e-4 atol 1e-5, each parameter within 2·lr a step (Adam
+    moves an element by about lr a step whatever its gradient).  The BN
+    statistics and the bank after the second update come from a forward
+    whose weights already differ by up to 2·lr an element (a running
+    mean here by 3.7e-5, 16x the one-update bound; the bank by 1.9e-4, 8x),
+    so they are held as ``tests/test_torch_port_resident.py`` holds the
+    chunked step's against JAX's: within 1e-3 of the leaf's largest
+    element (they read up to 8.5e-4 of it; the parameters up to 3.95·lr
+    of 4·lr)."""
+    _, res = units
+    acc, tensors = res[0]["chunk"][("resident", "chunk")]
+    metrics = {k: float(v) for k, v in acc.items()}
+    sd = {k[len("model."):]: v for k, v in tensors.items() if k.startswith("model.")}
+    want_metrics, want_sd = _jax_chunk()
+    lr = ExperimentConfig(**CONFIGS["pacing"]).lr
+    assert sorted(metrics) == sorted(want_metrics)
+    for k, v in want_metrics.items():
+        assert np.isclose(metrics[k], v, rtol=2e-4, atol=1e-5), (k, metrics[k], v)
+    assert sorted(sd) == sorted(want_sd)
+    for k, v in want_sd.items():
+        err = float((sd[k] - v).abs().max())
+        if k.endswith(("running_mean", "running_var", "memory_bank")):
+            assert err <= 1e-3 * float(v.abs().max()), (k, err)
+        elif not k.endswith("num_batches_tracked"):
+            assert err <= 2 * lr * K, (k, err)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("chunk", [1, 2, 8])
+@pytest.mark.parametrize("backend", [None, "gloo", "nccl"])
+def test_uses_graph_rule(device, chunk, backend):
+    """Which dispatch a chunk takes, with no card needed: a graph only on a
+    card, with ``chunk > 1``, alone or on NCCL ranks; gloo ranks, whose
+    collectives go through the host, step eagerly."""
+    want = device == "cuda" and chunk > 1 and backend != "gloo"
+    assert uses_graph(torch.device(device), chunk, backend) is want
+    assert uses_graph(device, chunk, backend) is want
+
+
 def test_conv_layer_is_unfused_under_ranks():
     """A ConvLayer whose BatchNorm has ranks takes the unfused path under
     the fused conv impl: the kernels' BN statistics would be the rank's
@@ -417,6 +565,10 @@ def runs(data_root, tmp_path_factory):
     for res in ("on", "off"):
         out[(W, res)] = str(root / f"w{W}_{res}")
         jobs.append((_config(num_devices=W, device_resident_data=res), out[(W, res)]))
+    # ARGV's dispatch is 2 a call: the same resident run one update a call
+    out[(W, "on", 1)] = str(root / f"w{W}_on_spd1")
+    jobs.append((_config(num_devices=W, device_resident_data="on", steps_per_dispatch=1),
+                 out[(W, "on", 1)]))
     mesh.spawn_ranks(workers.loops, W, (["cpu"] * W, str(root / "store"), data_root, jobs))
     return out
 
@@ -430,7 +582,46 @@ def test_two_rank_loop_matches_one_process(runs, resident):
     np.testing.assert_allclose(vd2, vd1, atol=5e-3)
     log = Path(runs[(W, resident)], "log.txt").read_text()
     assert "data-parallel: data mesh of 2" in log and "over gloo" in log
-    assert "steps per dispatch 1 (eager steps)" in log
+    assert "steps per dispatch 2 (eager steps)" in log       # ARGV's, as the run asked
+
+
+def _metric_lines(run_dir):
+    """The log's epoch and validation lines without their times."""
+    lines = [line.split("] ", 1)[1] for line in open(os.path.join(run_dir, "log.txt"))]
+    return [re.sub(r", [\d.]+ s/epoch, [\d.]+ slices/s", "", line) for line in lines
+            if line.startswith(("epoch: ", "val: "))]
+
+
+def test_two_rank_loop_is_the_same_for_every_dispatch(runs):
+    """On 2 ranks the loop with ``--steps_per_dispatch 2`` equals the same
+    loop with 1 bit for bit: every checkpoint's model and optimizer state
+    and the log's metric lines."""
+    a, b = runs[(W, "on")], runs[(W, "on", 1)]
+    assert "steps per dispatch 1 (eager steps)" in Path(b, "log.txt").read_text()
+    assert _metric_lines(a) == _metric_lines(b) and len(_metric_lines(a)) == 2 * EP
+    for e in range(EP):
+        for name in ("model.pth", "train.pth"):
+            got, want = (torch.load(os.path.join(d, "ckps", f"ckp_{e}", name),
+                                    weights_only=False) for d in (a, b))
+            flat_got, flat_want = _flatten(got), _flatten(want)
+            assert sorted(flat_got) == sorted(flat_want) and flat_want
+            for k, v in flat_want.items():
+                assert (torch.equal(flat_got[k], v) if torch.is_tensor(v)
+                        else flat_got[k] == v), (e, name, k)
+
+
+def _flatten(tree, prefix=""):
+    """A nested dict / list of a checkpoint file as ``{path: leaf}``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}"))
+    return out
 
 
 def test_rank_zero_alone_writes_the_run(runs):

@@ -32,7 +32,9 @@ the four ranks, space 4 (data 1) and data 2 x space 2:
   bounds; so is an upper-bound step (Dice loss over the space group); a
   step on 4 space ranks at 56x64 (unequal, thinner than the halo) against
   the one-process step; the ranks' replicas and banks are equal bit for
-  bit after the update.
+  bit after the update;
+* a resident chunk of K = 2 updates on data 2 x space 2 equals the same
+  updates one at a time bit for bit.
 
 Then the loop on 2 space ranks and on the AUTO split of 4 devices at batch
 6 (data 2 x space 2, resident and streamed) against one process, within
@@ -43,6 +45,7 @@ loss rtol 1e-2, val Dice atol 2e-2), and inference with ``--spatial_shards
 import dataclasses
 import glob
 import os
+import re
 import shutil
 from pathlib import Path
 
@@ -78,7 +81,8 @@ from pacingpseudo_torch.parallel import mesh, spatial
 from pacingpseudo_torch.tools.weights import from_jax_variables
 from pacingpseudo_torch.train import loop
 from pacingpseudo_torch.train.state import build_model
-from test_torch_port_parallel import JAX_GRAD_L2, _assert_grads_close, _assert_step_close
+from test_torch_port_parallel import (JAX_GRAD_L2, _assert_grads_close, _assert_step_close,
+                                      assert_chunks_equal_single_updates, chunk_inputs)
 
 W, N, S, C, INIT_CH, HID = 4, 4, 64, 3, 8, 16
 GRIDS = (4, 2)                      # space axes of the 4 ranks: 1 x 4 and 2 x 2
@@ -181,6 +185,7 @@ def _unit_inputs():
         inp[f"{name}_config"] = CONFIGS[session]
         inp[f"{name}_sd0"] = _state_dict0(session)
         inp[f"{name}_batch"] = {k: _nchw(v) for k, v in _nhwc_batch(session, height).items()}
+    inp.update(chunk_inputs())
     return inp
 
 
@@ -431,6 +436,15 @@ def test_ranks_hold_equal_replicas_and_banks(units, name):
             assert torch.equal(got[name][1][k], v), k
 
 
+def test_chunk_on_the_grid_equals_single_updates(units):
+    """A resident chunk of K = 2 updates on data 2 x space 2 (the sharded
+    pool's gather over the data axis, then each rank's heights) equals the
+    same updates one at a time bit for bit, on every rank: summed metrics,
+    state, Adam's moments, the bank."""
+    _, res = units
+    assert_chunks_equal_single_updates(res, "resident")
+
+
 # ---------------------------------------------------------------------------
 # The loop and inference
 # ---------------------------------------------------------------------------
@@ -507,6 +521,9 @@ def test_height_sharded_loop_matches_one_process(runs, key):
     if key != "space2":
         assert "auto spatial fallback: batch 6 on 4 devices" in log
     assert ("training data resident on the device" in log) == (res == "on")
+    # the config's steps_per_dispatch (8), cut to the epoch, as eager steps on gloo
+    spe = int(re.search(r"steps/epoch=(\d+)", log).group(1))
+    assert f"steps per dispatch {min(8, spe)} (eager steps)" in log and spe > 1
 
 
 def test_rank_zero_alone_writes_the_sharded_run(runs):

@@ -17,7 +17,10 @@ from pacingpseudo_torch.models.norm import BatchNorm2d
 from pacingpseudo_torch.ops.fused_loss import fused_pacing_losses
 from pacingpseudo_torch.parallel import mesh
 from pacingpseudo_torch.train.state import build_model, create_train_state
-from pacingpseudo_torch.train.step import make_pacing_train_step, make_upper_bound_train_step
+from pacingpseudo_torch.train.step import (_accumulate, make_chunked_train_step,
+                                           make_pacing_train_step,
+                                           make_resident_chunked_train_step,
+                                           make_upper_bound_train_step, seed_step)
 
 
 def loss_terms(inp, ranks=None):
@@ -114,6 +117,62 @@ def pool_gather(inp, ranks):
     return {k: v.clone() for k, v in got.items()}, shard["image"].shape[0]
 
 
+def state_tensors(state):
+    """The model's state and Adam's moments (and step counts), cloned."""
+    out = {f"model.{k}": v.clone() for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.optimizer.state[p].items():
+            out[f"opt.{name}.{k}"] = v.clone() if torch.is_tensor(v) else v
+    return out
+
+
+def chunk_runs(inp, ranks, paths=("resident", "streamed")):
+    """A chunk of ``K`` updates on ``ranks`` and the same ``K`` updates one
+    at a time, each reseeded from ``(seed, step)`` as the chunk reseeds
+    them, both from ``inp["chunk_sd0"]``: ``{(path, "chunk" | "single"):
+    (summed metrics, state_tensors)}``.  ``resident``: the pre-augmented
+    pool ``inp["chunk_pool"]`` sharded over the data axis, index blocks
+    ``inp["chunk_blocks"]`` (K, N) through ``make_resident_gather``;
+    ``streamed``: the raw batches ``inp["chunk_raw"]`` stacked (K, N, ...),
+    augmented inside the step."""
+    from pacingpseudo_torch.aug.engine import make_train_augment_fn
+    from pacingpseudo_torch.aug.params import BaseAugParams, StrongAugParams
+
+    config = ExperimentConfig(**inp["chunk_config"]).validate()
+    pool = inp["chunk_pool"]
+    shard = {k: v[mesh.shard_indices(v.shape[0], ranks)] for k, v in pool.items()}
+    pool_gather = mesh.make_resident_gather(ranks)
+    base = BaseAugParams(crop_size=(32, 32), num_classes=3, ignored_index=3)
+    augment_fn = make_train_augment_fn(base, StrongAugParams.color(1.0), True)
+    out = {}
+    for path in paths:
+        xs = inp["chunk_blocks"] if path == "resident" else inp["chunk_raw"]
+        k_steps = xs.shape[0] if path == "resident" else xs["image"].shape[0]
+        for how in ("chunk", "single"):
+            model = build_model(config, device="cpu")
+            model.load_state_dict(inp["chunk_sd0"], strict=True)
+            state = create_train_state(config, device="cpu", model=model)
+            step = make_pacing_train_step(config, inp["chunk_spe"], ranks=ranks,
+                                          augment_fn=None if path == "resident" else augment_fn)
+            gen = torch.Generator()
+            if how == "chunk" and path == "resident":
+                acc = make_resident_chunked_train_step(step, k_steps, shard,
+                                                       pool_gather=pool_gather)(
+                    state, xs, gen, config.seed)
+            elif how == "chunk":
+                acc = make_chunked_train_step(step, k_steps)(state, xs, gen, config.seed)
+            else:
+                acc = None
+                for k in range(k_steps):
+                    seed_step(gen, torch.device("cpu"), config.seed, state.step)
+                    batch = (pool_gather(shard, xs[k]) if path == "resident"
+                             else {key: v[k] for key, v in xs.items()})
+                    acc = _accumulate(acc, step(state, batch, gen))
+            mesh.attach_ranks(model, None)
+            out[(path, how)] = (acc, state_tensors(state))
+    return out
+
+
 def units(rank, devices, store, inputs, out):
     """Every unit of the test on this rank; saved to ``<out>.<rank>``."""
     torch.set_num_threads(1)
@@ -126,6 +185,7 @@ def units(rank, devices, store, inputs, out):
     for name in ("pacing", "upper_bound"):
         res[name] = one_step(inp[f"{name}_config"], inp[f"{name}_sd0"],
                              inp[f"{name}_batch"], ranks)
+    res["chunk"] = chunk_runs(inp, ranks)
     torch.save(res, f"{out}.{rank}")
     mesh.close_rank_group(ranks)
 

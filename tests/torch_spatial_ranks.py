@@ -85,7 +85,8 @@ def banks(inp, ranks):
 
 def units(rank, devices, store, inputs, out):
     """Every unit of the test on this rank, on two grids of the 4 ranks
-    (space 4, and data 2 x space 2); saved to ``<out>.<rank>``."""
+    (space 4, and data 2 x space 2; the chunked step on the latter); saved
+    to ``<out>.<rank>``."""
     torch.set_num_threads(1)
     grids = {4: mesh.init_rank_group(rank, devices, store, 4)}
     grids[2] = mesh.make_grid(devices[rank], 2)
@@ -97,6 +98,7 @@ def units(rank, devices, store, inputs, out):
     for name, s in inp["steps"]:
         res[name] = torch_parallel_ranks.one_step(inp[f"{name}_config"], inp[f"{name}_sd0"],
                                                   inp[f"{name}_batch"], grids[s])
+    res["chunk"] = torch_parallel_ranks.chunk_runs(inp, grids[2], paths=("resident",))
     torch.save(res, f"{out}.{rank}")
     mesh.close_rank_group(grids[4])
 
