@@ -184,6 +184,13 @@ Phases, each of which exits non-zero on failure:
               profiler counts 4 x the eager step's ``fused_loss_fwd``,
               ``fused_loss_bwd`` and ``warp_cubic`` kernels, and the
               wrappers' counts add one a kernel a replay.
+16d. study (tiny) -- ``scripts/quality_study_torch.py`` at full width on a
+              48-slice hard pool, 2 epochs an arm: Control, Experiment and
+              Upperbound trained (replayed, the pool resident), evaluated
+              and summarised; the Experiment arm launches ``fused_loss_fwd``,
+              ``fused_loss_bwd`` and ``warp_cubic``; then
+              ``scripts/quality_study_compare.py`` over the output
+              (``phase_study_tiny``).
 18. profile_dir -- a CLI training run with ``--profile_dir`` (3 epochs of
               2 steps, the graph path) writes one trace of epoch 1 with the
               card's kernels and logs it.  The profiler phases run last, so
@@ -204,6 +211,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3312,6 +3320,77 @@ def check_graph_replay_launches(dev, raw, augment_fn, counters):
     return got
 
 
+STUDY_SLICES = 48        # the tiny study's hard pool
+STUDY_EPOCHS = 2
+
+
+def _script(name):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_study_tiny(root, counters, smi):
+    """``scripts/quality_study_torch.py`` at full width on this card: a hard
+    pool of ``STUDY_SLICES`` phantoms, ``--epochs 2``, every arm trained
+    (the loop's defaults: 8 updates a dispatch, replayed, the pool resident)
+    and its best checkpoint evaluated, the summary written; the Experiment
+    arm alone between the counts' reset and read.  At lr 0.003 (the one
+    extra ``cli.train`` flag), as in ``phase_sweep``, so that an arm predicts
+    some foreground in 6 updates and saves the best checkpoint that its
+    evaluation reads.  Then ``scripts/quality_study_compare.py`` over the
+    output against ``study_r3``: its JSON must parse, with a verdict for
+    each rule (none is taken at 2 epochs)."""
+    runner, compare = _script("quality_study_torch"), _script("quality_study_compare")
+    study = os.path.join(root, "study")
+    args = ["--root", study, "--epochs", str(STUDY_EPOCHS), "--slices", str(STUDY_SLICES)]
+    extra = ["--", "--lr", "0.003"]
+    _release_memory()
+    t0 = time.perf_counter()
+    runner.main(args + ["--arms", "Control", "Upperbound"] + extra)
+    _reset_launch_counts(counters)
+    t1 = time.perf_counter()
+    rows = runner.main(args + ["--arms", "Experiment"] + extra)
+    t2 = time.perf_counter()
+    launches = _launch_counts(counters)
+    _check(all(launches[k] >= 1 for k in ("fused_loss_fwd", "fused_loss_bwd", "warp_cubic"))
+           and launches["fused_loss_fwd"] == launches["fused_loss_bwd"],
+           f"study (tiny): the Experiment arm's launches {launches}")
+    epochs = {}
+    for row in rows:
+        arm = row["arm"]
+        run_dir = os.path.join(study, arm, "run-fold0")
+        log = open(os.path.join(run_dir, "log.txt")).read()
+        valdice = np.load(os.path.join(run_dir, "valdice.npz"))["valdice"]
+        _check(valdice.shape == (STUDY_EPOCHS,) and np.isfinite(valdice).all()
+               and all(f"val: {e:03d}," in log for e in range(STUDY_EPOCHS))
+               and os.path.exists(os.path.join(study, arm, "DONE")),
+               f"study (tiny): {arm} ran {valdice} epochs, or left no DONE marker")
+        _check(all(row.get(k) is not None and math.isfinite(row[k])
+                   for k in ("test_dice_slice", "test_dice_patient", "test_hd95_slice")),
+               f"study (tiny): {arm}'s summary row {row}")
+        epochs[arm] = [float(x) for x in re.findall(r"([0-9.]+) s/epoch", log)]
+    _check([r["arm"] for r in rows] == ["Control", "Experiment", "Upperbound"],
+           f"study (tiny): summary rows {rows}")
+    compare.main(["--jax", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "study_r3"), "--port", study])
+    rules = json.load(open(os.path.join(study, "compare.json")))["rules"]
+    _check(sorted(rules) == ["a", "b", "c", "d"]
+           and all(r["verdict"] in ("pass", "fail", "not evaluated") for r in rules.values()),
+           f"study (tiny): compare.json's rules {rules}")
+    print(f"study (tiny): {smi}: {STUDY_SLICES} hard slices, {STUDY_EPOCHS} epochs an arm; "
+          f"Control and Upperbound {t1 - t0:.1f} s, Experiment {t2 - t1:.1f} s (pool, training, "
+          f"inference); s/epoch {epochs}; Experiment arm launches "
+          f"{ {k: v for k, v in launches.items() if v} }; summary "
+          f"{[(r['arm'], round(r['best_val_dice'], 4), round(r['test_dice_slice'], 4), round(r['test_hd95_slice'], 2)) for r in rows]}",
+          flush=True)
+    return launches
+
+
 def phase_profile_dir(data_root, smi):
     """``--profile_dir``: a CLI training run (the Experiment session at full
     width, 3 epochs of 2 steps, the graph path) writes one
@@ -3471,6 +3550,7 @@ def main() -> None:
         _release_memory()
         rg_launches = phase_ranks_graph(dev, loop_root, rg_raws, smi, one_card)
         del dp_raws, sp_raws, rg_raws
+        study_launches = phase_study_tiny(root, counters, smi)
 
         # Profiler sessions last: none is followed by a timed phase.
         check_bn_sums_launches(fc, dev)
@@ -3483,7 +3563,8 @@ def main() -> None:
              "train (raw, upper bound, fused conv)": ub_fused_launches,
              **graph_paths, "loop (resident, graph)": loop_launches,
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
-             **sp_launches, **rg_launches}
+             **sp_launches, **rg_launches,
+             "study (tiny), Experiment arm": study_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

@@ -320,7 +320,27 @@ def devices_from_gpu(gpu: str) -> List[torch.device]:
                          f"got {gpu!r}") from None
 
 
-def main(argv=None):
+def write_synthetic_pool(args, config: ExperimentConfig) -> None:
+    """``--synthetic_data N``: N phantoms under ``--data_root`` (kept as they
+    are when an identical pool is there already)."""
+    from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
+    spec = DATASETS[config.dataset]
+    write_synthetic_dataset(
+        args.data_root, config.dataset, args.synthetic_data,
+        tuple(args.input_size) if args.input_size else spec.input_size,
+        config.num_classes, config.ignored_index,
+        modality=config.modality, seed=config.seed,
+        size_jitter=args.synthetic_size_jitter,
+        difficulty=args.synthetic_difficulty,
+        scribble_style=args.synthetic_scribble_style,
+        scribble_ratio=args.synthetic_scribble_ratio)
+
+
+def main(argv=None, stop_after_epoch=None):
+    """Train as ``argv`` says; returns the run directory.  ``stop_after_epoch``
+    (no flag: the argv stays the JAX package's) stops the run cleanly after
+    that epoch, its schedules still spanning ``--epoch``, so that a later
+    call with ``--resume`` carries it on (``train.loop.train_driver``)."""
     args = build_parser().parse_args(argv)
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -328,17 +348,7 @@ def main(argv=None):
     config = config_from_args(args).validate()
 
     if args.synthetic_data:
-        from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
-        spec = DATASETS[config.dataset]
-        write_synthetic_dataset(
-            args.data_root, config.dataset, args.synthetic_data,
-            tuple(args.input_size) if args.input_size else spec.input_size,
-            config.num_classes, config.ignored_index,
-            modality=config.modality, seed=config.seed,
-            size_jitter=args.synthetic_size_jitter,
-            difficulty=args.synthetic_difficulty,
-            scribble_style=args.synthetic_scribble_style,
-            scribble_ratio=args.synthetic_scribble_ratio)
+        write_synthetic_pool(args, config)
 
     from pacingpseudo_torch.train.loop import make_run_dir, train_driver
 
@@ -356,7 +366,7 @@ def main(argv=None):
             return train_driver(
                 config, args.data_root, run_dir=run_dir,
                 max_steps_per_epoch=args.max_steps_per_epoch or None,
-                device=devices)
+                stop_after_epoch=stop_after_epoch, device=devices)
         except KeyboardInterrupt:
             raise
         except Exception:

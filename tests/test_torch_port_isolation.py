@@ -1,10 +1,11 @@
-"""The port stands alone: no module of ``pacingpseudo_torch``, and not
-``chip_smoke.py``, imports JAX, flax, optax or the JAX package.
+"""The port stands alone: no module of ``pacingpseudo_torch``, not
+``chip_smoke.py``, and not the study's scripts (``STUDY_SCRIPTS``) import
+JAX, flax, optax or the JAX package.
 
-Two checks: a fresh interpreter imports every port module and finds none
-of them in ``sys.modules``, and an AST scan of the sources finds no such
-import statement (also inside functions, where the first check cannot
-see it).
+Two checks: a fresh interpreter imports every port module (and, apart,
+the study's scripts) and finds none of them in ``sys.modules``, and an AST
+scan of the sources finds no such import statement (also inside
+functions, where the first check cannot see it).
 """
 import ast
 import json
@@ -17,6 +18,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "pacingpseudo_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pacingpseudo_tpu")
+STUDY_SCRIPTS = (ROOT / "scripts" / "quality_study_torch.py",
+                 ROOT / "scripts" / "quality_study_compare.py")
 
 
 def _port_modules():
@@ -58,7 +61,25 @@ def test_importing_the_port_loads_no_jax():
     assert [m for m in loaded if _is_forbidden(m)] == []
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+def test_the_study_scripts_load_no_jax():
+    """Each script as its ``main`` runs it: the runner's arms and summary
+    import ``cli.train``, ``cli.inference`` and ``tools.study_summary``."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for path in {[str(p) for p in STUDY_SCRIPTS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('s', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import pacingpseudo_torch.cli.train, pacingpseudo_torch.cli.inference\n"
+        "import pacingpseudo_torch.tools.study_summary\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    loaded = json.loads(out.splitlines()[-1])
+    assert [m for m in loaded if _is_forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + list(STUDY_SCRIPTS),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -11,7 +11,19 @@ front of its optimizer.  To keep this file's compile time down, the JAX
 programs draw from an ``rbg`` key instead of threefry and are compiled at
 XLA backend optimization level 0 (the same float32 operations).  The port runs twice: with the loss library
 (``use_pallas_loss="auto"`` on the CPU) and with the fused loss's plain
-version (``"on"``).
+version (``"on"``).  ``test_train_step_matches_jax`` also holds the step's
+other config flags (``CASES``), each with the JAX step built from the same
+overrides: the consistency variants ``l1_loss``, ``l2_loss`` and
+``kl_loss``, ``detach_weak_cr``, ``memory_update_mode="all"``,
+``aux_on_strong=False`` and ``ensemble_mode="mean"`` at the bounds below,
+and the single-stream steps (the Control session, ``fuse_streams=False``)
+with every ConvLayer's LeakyReLU at slope 1 on both sides (the port's
+``models.unet.NEGATIVE_SLOPE``, the JAX ``ConvLayer.negative_slope`` field,
+set in a subclass that the JAX UNet builds while the step is traced).  At
+slope 0.01 one pixel of ``dec_block1.conv_layer2`` of the weak stream lies
+at |x| = 7.2e-7 and takes the other branch on one side, which puts most
+leaves 1-2.3% of their norm off; at slope 1 no branch exists and the same
+bounds hold.
 
 Tolerances: weighted metrics rtol 1e-4; BN statistics and the bank within
 1e-4 x max.  Gradients: see ``_assert_grads_close``; new parameters follow
@@ -29,6 +41,7 @@ channel; the JAX step's own float32 gradient differs from a float64
 evaluation of the same step by as much.  The leaves before the first such
 pixel (``dec_block1``, ``final_conv``, the aux path) are held at 1e-3 x max.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -43,6 +56,7 @@ from pacingpseudo_tpu.aug.params import BaseAugParams, StrongAugParams
 from pacingpseudo_tpu.config import ExperimentConfig as JaxConfig
 from pacingpseudo_tpu.evals.dice import dice_per_class_jax
 from pacingpseudo_tpu.models import PacingPseudoModel as JaxPacing
+from pacingpseudo_tpu.models import unet as jax_unet
 from pacingpseudo_tpu.tools.torch_import import convert_state_dict
 from pacingpseudo_tpu.train import optim as jax_optim
 from pacingpseudo_tpu.train import schedules as jax_sched
@@ -51,6 +65,7 @@ from pacingpseudo_tpu.train.step import make_pacing_eval_step as jax_eval_step
 from pacingpseudo_tpu.train.step import make_pacing_train_step as jax_train_step
 from pacingpseudo_torch.config import ExperimentConfig
 from pacingpseudo_torch.evals.dice import dice_per_class, dice_per_class_hard
+from pacingpseudo_torch.models import unet
 from pacingpseudo_torch.models.unet import torch_default_init_
 from pacingpseudo_torch.tools.weights import from_jax_variables
 from pacingpseudo_torch.train import optim, schedules
@@ -62,6 +77,24 @@ STEPS_PER_EPOCH = 4
 FLAGS = dict(num_classes=C, ignored_index=C, init_ch=INIT_CH, hid_ch=HID,
              batch_size=N, do_loss_ent=True, do_decoder_consistency=True,
              do_aux_path=True, do_memory=True, compute_dtype="float32")
+CONTROL = dict(session="Control", do_loss_ent=False, do_decoder_consistency=False,
+               do_aux_path=False, do_memory=False)
+# A case of test_train_step_matches_jax: (config overrides of both sides,
+# the port's own overrides, the ConvLayers' LeakyReLU slope or None for the
+# model's own).
+CASES = {
+    "auto": ({}, {"use_pallas_loss": "auto"}, None),
+    "on": ({}, {"use_pallas_loss": "on"}, None),
+    "l1_loss": ({"loss_cr_variants": "l1_loss"}, {}, None),
+    "l2_loss": ({"loss_cr_variants": "l2_loss"}, {}, None),
+    "kl_loss": ({"loss_cr_variants": "kl_loss"}, {}, None),
+    "detach_weak_cr": ({"detach_weak_cr": True}, {}, None),
+    "memory_update_all": ({"memory_update_mode": "all"}, {}, None),
+    "aux_on_weak": ({"aux_on_strong": False}, {}, None),
+    "ensemble_mean": ({"ensemble_mode": "mean"}, {}, None),
+    "control_slope1": (CONTROL, {}, 1.0),
+    "unfused_streams_slope1": ({"fuse_streams": False}, {}, 1.0),
+}
 
 
 def _nchw(x):
@@ -101,37 +134,96 @@ def _batch():
     return _np(_compiled(augment, raw, jax.random.key(3, impl="rbg")))
 
 
-def _initial_state_dict():
-    model = build_model(ExperimentConfig(**FLAGS).validate(), device="cpu")
+def _initial_state_dict(flags=FLAGS):
+    model = build_model(ExperimentConfig(**flags).validate(), device="cpu")
     torch_default_init_(model, torch.Generator().manual_seed(5))
-    bank = np.random.RandomState(6).randn(C, HID).astype(np.float32)
-    bank[2] = 0.0                                              # a cold row
-    model.aux_path.memory_bank.copy_(torch.from_numpy(bank)[:, :, None, None])
+    if model.do_aux_path:
+        bank = np.random.RandomState(6).randn(C, HID).astype(np.float32)
+        bank[2] = 0.0                                          # a cold row
+        model.aux_path.memory_bank.copy_(torch.from_numpy(bank)[:, :, None, None])
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-@pytest.fixture(scope="module")
-def run():
-    """The JAX step and eval step from the shared state and batch."""
-    sd0 = _initial_state_dict()
-    batch = _batch()
+class _SlopeOneConvLayer(jax_unet.ConvLayer):
+    """The JAX ConvLayer with its LeakyReLU at slope 1 (an identity)."""
+
+    negative_slope: float = 1.0
+
+
+@contextlib.contextmanager
+def _slope(slope):
+    """Every ConvLayer's LeakyReLU at ``slope`` on both sides, or the
+    model's own for ``None``."""
+    with pytest.MonkeyPatch.context() as mp:
+        if slope is not None:
+            assert slope == 1.0
+            mp.setattr(jax_unet, "ConvLayer", _SlopeOneConvLayer)
+            mp.setattr(unet, "NEGATIVE_SLOPE", slope)
+        yield
+
+
+def _batch_for(batch, flags):
+    """The batch a session trains on: the Control session's has no strong
+    stream."""
+    if flags.get("do_decoder_consistency"):
+        return batch
+    return {k: v for k, v in batch.items() if k != "image_strong"}
+
+
+def _jax_step(batch, overrides, slope, with_eval=False):
+    """The JAX step (and eval step) of ``FLAGS`` + ``overrides`` from the
+    port's seeded state, on ``batch``."""
+    flags = {**FLAGS, **overrides}
+    sd0 = _initial_state_dict(flags)
+    batch = _batch_for(batch, flags)
     params, stats, bank = convert_state_dict({k: v.numpy() for k, v in sd0.items()})
-    config = JaxConfig(**FLAGS).validate()
-    model = JaxPacing(num_classes=C, init_ch=INIT_CH, do_aux_path=True,
-                      hid_ch=HID, s2d_hires=False, dtype=jnp.float32)
+    config = JaxConfig(**flags).validate()
+    model = JaxPacing(num_classes=C, init_ch=INIT_CH, do_aux_path=config.do_aux_path,
+                      hid_ch=HID, aux_on_strong=config.aux_on_strong,
+                      fuse_streams=config.fuse_streams, s2d_hires=False,
+                      dtype=jnp.float32)
     tx = optax.chain(_grad_stash(), jax_optim.make_optimizer(config, STEPS_PER_EPOCH))
     state = JaxState(step=jnp.zeros((), jnp.int32), params=params,
                      batch_stats=stats, opt_state=tx.init(params),
-                     memory_bank=jnp.asarray(bank))
-    step = jax_train_step(config, model, tx, STEPS_PER_EPOCH, donate=False)
-    new_state, metrics = _compiled(step, state, batch, jax.random.key(0, impl="rbg"))
-    loss, dice, logits = _compiled(jax_eval_step(config, model), new_state, batch)
-    return dict(sd0=sd0, batch=batch, metrics=_np(metrics),
-                grads=_np(new_state.opt_state[0]),
-                new_sd=from_jax_variables(_np(new_state.params),
-                                          _np(new_state.batch_stats),
-                                          np.array(new_state.memory_bank)),
-                eval=(float(loss), np.array(dice), _nchw(logits)))
+                     memory_bank=None if bank is None else jnp.asarray(bank))
+    with _slope(slope):
+        step = jax_train_step(config, model, tx, STEPS_PER_EPOCH, donate=False)
+        new_state, metrics = _compiled(step, state, batch, jax.random.key(0, impl="rbg"))
+        out = dict(sd0=sd0, batch=batch, metrics=_np(metrics),
+                   grads=_np(new_state.opt_state[0]),
+                   new_sd=from_jax_variables(
+                       _np(new_state.params), _np(new_state.batch_stats),
+                       None if bank is None else np.array(new_state.memory_bank)))
+        if with_eval:
+            loss, dice, logits = _compiled(jax_eval_step(config, model), new_state, batch)
+            out["eval"] = (float(loss), np.array(dice), _nchw(logits))
+    return out
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return _batch()
+
+
+@pytest.fixture(scope="module")
+def run(batch):
+    """The JAX step and eval step from the shared state and batch."""
+    return _jax_step(batch, {}, None, with_eval=True)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(batch, run):
+    """The JAX step of a case of ``CASES``, built once a case."""
+    cache = {}
+
+    def get(case):
+        overrides, _, slope = CASES[case]
+        key = (tuple(sorted(overrides.items())), slope)
+        if key not in cache:
+            cache[key] = run if key == ((), None) else _jax_step(batch, overrides, slope)
+        return cache[key]
+
+    return get
 
 
 def _port_state(sd0, **overrides):
@@ -192,11 +284,14 @@ def _assert_new_params_close(params, old_sd, want_grads, new_sd, lr, wd):
         assert float(err.max()) <= 2 * lr + 1e-6, name
 
 
-@pytest.mark.parametrize("use_pallas_loss", ["auto", "on"])
-def test_train_step_matches_jax(run, use_pallas_loss):
-    config, state = _port_state(run["sd0"], use_pallas_loss=use_pallas_loss)
-    metrics = make_pacing_train_step(config, STEPS_PER_EPOCH)(
-        state, _port_batch(run["batch"]))
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_step_matches_jax(jax_runs, case):
+    run = jax_runs(case)
+    overrides, port_overrides, slope = CASES[case]
+    config, state = _port_state(run["sd0"], **overrides, **port_overrides)
+    with _slope(slope):
+        metrics = make_pacing_train_step(config, STEPS_PER_EPOCH)(
+            state, _port_batch(run["batch"]))
     assert state.step == 1
 
     assert sorted(metrics) == sorted(run["metrics"])

@@ -1,6 +1,6 @@
 """Port parity: the Upperbound session of ``pacingpseudo_torch`` against
 ``pacingpseudo_tpu`` (CPU, float32, 64x64, init_ch 8, batch 2, 4 classes,
-``loss_dice`` on).
+``loss_dice`` on, and the train step also with it off).
 
 Both sides start from the same state: the port's seeded init of the bare
 model that an Upperbound config builds (no aux path, no bank), with
@@ -148,15 +148,13 @@ def _jax_model():
                      dtype=jnp.float32)
 
 
-@pytest.fixture(scope="module")
-def run():
+def _jax_run(batch, loss_dice=True):
     """The JAX upper-bound step and eval step from the shared state and batch."""
     sd0 = _initial_state_dict()
     assert not any(k.startswith("aux_path.") for k in sd0)
-    batch = _batch()
     params, stats, bank = convert_state_dict({k: v.numpy() for k, v in sd0.items()})
     assert bank is None and list(params) == ["backbone"]
-    config = JaxConfig(**FLAGS).validate()
+    config = JaxConfig(**{**FLAGS, "loss_dice": loss_dice}).validate()
     model = _jax_model()
     tx = optax.chain(_grad_stash(), jax_optim.make_optimizer(config, STEPS_PER_EPOCH))
     state = JaxState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
@@ -169,6 +167,18 @@ def run():
                 new_sd=from_jax_variables(_np(new_state.params),
                                           _np(new_state.batch_stats)),
                 eval=(float(loss_ce), float(loss_dice), np.array(dice), _nchw(logits)))
+
+
+@pytest.fixture(scope="module")
+def run():
+    """The JAX upper-bound step and eval step from the shared state and batch."""
+    return _jax_run(_batch())
+
+
+@pytest.fixture(scope="module")
+def run_without_dice(run):
+    """The same with ``loss_dice=False``: cross-entropy alone."""
+    return _jax_run(run["batch"], loss_dice=False)
 
 
 def _port_state(sd0, **overrides):
@@ -209,13 +219,27 @@ def test_the_session_decides_the_aux_path(session):
 
 
 def test_train_step_matches_jax(run):
-    config, state = _port_state(run["sd0"])
+    _check_train_step(run, loss_dice=True)
+
+
+def test_train_step_matches_jax_without_dice(run_without_dice):
+    """``--loss_dice False``: the step's cross-entropy alone, at the same
+    bounds."""
+    metrics = _check_train_step(run_without_dice, loss_dice=False)
+    assert float(metrics["loss_total"]) == float(metrics["loss_ce"])
+
+
+def _check_train_step(run, loss_dice):
+    """The port's upper-bound step against ``run``'s JAX step; returns the
+    port's metrics."""
+    config, state = _port_state(run["sd0"], loss_dice=loss_dice)
     assert not state.model.do_aux_path and state.memory_bank is None
     metrics = make_upper_bound_train_step(config, STEPS_PER_EPOCH)(
         state, _port_batch(run["batch"]))
     assert state.step == 1
-    assert sorted(metrics) == sorted(run["metrics"]) == ["loss_ce", "loss_dice",
-                                                         "loss_total", "lr"]
+    assert sorted(metrics) == sorted(run["metrics"]) == (
+        ["loss_ce", "loss_dice", "loss_total", "lr"] if loss_dice else
+        ["loss_ce", "loss_total", "lr"])
     for k, want in run["metrics"].items():
         assert np.isclose(float(metrics[k]), float(want), rtol=1e-4, atol=0), k
 
@@ -249,6 +273,7 @@ def test_train_step_matches_jax(run):
         if name.endswith(("running_mean", "running_var")):
             err = float((got_sd[name] - want).abs().max())
             assert err <= 1e-4 * float(want.abs().max()), (name, err)
+    return metrics
 
 
 def test_frozen_bn_step_keeps_the_running_statistics(run):
