@@ -207,6 +207,7 @@ Imports nothing of JAX: it drives the port only.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import math
@@ -268,6 +269,21 @@ FUSED_LAYERS = 18   # ConvLayers of the full-width step on the fused path
 # The loop phases 11 and 12 run the eager loop on streamed batches, the
 # path whose launches the wrappers count a step (the graph loop is phase 16).
 EAGER_LOOP = dict(steps_per_dispatch=1, device_resident_data="off")
+# train (height-sharded, past the coarse rows): the Experiment session at
+# full width on 48x48 images at output stride 16 (3 coarse rows) on 4 space
+# ranks, the split cut at the 6-row level (2, 2, 1, 1 rows: 16, 16, 8, 8
+# image rows); kernels 1-2 take each rank's block, 6b the global batch.
+# Not output stride 32: the aux path concatenates encoder stages 6 and 5,
+# which differ in size there (in the JAX package as in the port).
+# inference (height-sharded, past the coarse rows): the bare UNet at output
+# stride 32 on 96x96 slices (3 coarse rows) on 4 space ranks.
+DEEP_WORLD = 4
+DEEP_CONFIG = dict(input_size=(48, 48), output_stride=16)
+DEEP_BATCH_SHAPE = (12, 48, 48)
+DEEP_LOSS_BLOCKS = ((12, 5, 16, 48), (12, 5, 8, 48))
+DEEP_INFER = dict(input_size=(96, 96), output_stride=32)
+DEEP_TEST_SLICES = 96
+DEEP_TIMED = 5
 
 
 def _fail(msg: str) -> None:
@@ -325,7 +341,9 @@ def _loss_inputs(c, case, dev, seed, n=12, h=256, w=256, offset=0):
 # data-parallel step (6 of 12: the plan's chunk and grid follow n), and a
 # rank's block of the height-sharded step (``fused_loss`` at shard heights:
 # 128 rows of 256 at space 2, and 6 rows of the batch at data 2 x space 2;
-# at space 3 the uneven split 88, 88, 80).  ``blocks`` None: any.
+# at space 3 the uneven split 88, 88, 80; past the coarse rows, 48x48 at
+# output stride 16 on space 4: 16, 16, 8 and 8 rows).  ``blocks`` None:
+# any.
 FWD_CHECKS = (
     ("random", 12, 2, 256, 256, 0, "vec4", None),
     ("random", 12, 3, 256, 256, 0, "vec4", None),
@@ -342,6 +360,8 @@ FWD_CHECKS = (
     ("random", 6, 5, 128, 256, 0, "vec4", None),
     ("random", 12, 5, 88, 256, 0, "vec4", None),
     ("random", 12, 5, 80, 256, 0, "vec4", None),
+    ("random", 12, 5, 16, 48, 0, "vec4", None),
+    ("random", 12, 5, 8, 48, 0, "vec4", None),
 )
 
 
@@ -428,7 +448,8 @@ def check_warp_cubic(wc, warp, dev):
     operations differed).  Returns the max abs error of the image."""
     err = 0.0
     for i, (shape, sentinel) in enumerate((((12, 256, 256), False), ((12, 256, 256), True),
-                                           ((3, 64, 96), False), ((3, 64, 96), True))):
+                                           ((3, 64, 96), False), ((3, 64, 96), True),
+                                           (DEEP_BATCH_SHAPE, False))):
         planes, sy, sx, bh, bw = _warp_case(shape, dev, 250 + i, sentinel)
         got = wc.warp_sample_cubic(*planes, sy, sx, 6, bh, bw)
         plain = wc.warp_sample_cubic_plain(*planes, sy, sx, 6, bh, bw)
@@ -569,20 +590,65 @@ def phase_kernels(fl, wt, wc, warp, dev):
              lambda: wc.launch(*wplanes, sy, sx, bh, bw, lo, hi, 6),
              lambda: wc.warp_sample_cubic_plain(*wplanes, sy, sx, 6, bh, bw),
              cubic_bytes, WARP_CUBIC_OPS * sy.numel())):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"pacingpseudo_torch/csrc/{source}.cu",
                "replaces": f"pacingpseudo_tpu/ops/pallas/{replaces}",
                "launches": None, "max_abs_err": err[name],
-               "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
+               **_row_times(fn, plain, nbytes, ops, flush), "library_ms": None}
         print(f"kernels: {name} {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
               f" ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
         rows.append(row)
+    shard_shapes = time_shard_shapes(fl, wc, warp, dev, flush, err)
+    for row in rows:
+        if row["name"] in shard_shapes:
+            row["shard_shapes"] = shard_shapes[row["name"]]
     return rows
+
+
+def _row_times(fn, plain, nbytes, ops, flush):
+    """A kernel's ms, its plain version's and the bound of the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_shard_shapes(fl, wc, warp, dev, flush, err):
+    """Kernels 1, 2 and 6b at the shapes ``train (height-sharded, past the
+    coarse rows)`` gives them (each held against its plain version by
+    ``check_fused_loss`` and ``check_warp_cubic`` before): the fused loss at
+    each rank's block (``DEEP_LOSS_BLOCKS``), the direct warp on the global
+    batch (``DEEP_BATCH_SHAPE``).  Returns each kernel's entries."""
+    out = {"fused_loss_fwd": [], "fused_loss_bwd": [], "warp_cubic": []}
+    for i, (n, c, h, w) in enumerate(DEEP_LOSS_BLOCKS):
+        lw, ls, tgt, mask = _loss_inputs(c, "random", dev, 300 + i, n, h, w)
+        res = fl.forward_plain(lw, ls, tgt, mask, c)
+        scal = torch.tensor(LOSS_WEIGHTS, device=dev) / res[8:]
+        npix = tgt.numel()
+        for name, fn, plain, nbytes, ops in (
+                ("fused_loss_fwd", lambda: fl.fused_loss_forward(lw, ls, tgt, mask, c),
+                 lambda: fl.forward_plain(lw, ls, tgt, mask, c),
+                 _bytes(lw, ls, tgt, mask, res), npix * (18 * c + 8)),
+                ("fused_loss_bwd", lambda: fl.fused_loss_backward(lw, ls, tgt, mask, scal, c),
+                 lambda: fl.backward_plain(lw, ls, tgt, mask, scal, c),
+                 _bytes(lw, ls, tgt, mask, scal) + 2 * _bytes(lw), npix * 26 * c)):
+            entry = {"shape": [n, c, h, w], "max_abs_err": err[name], "library_ms": None,
+                     **_row_times(fn, plain, nbytes, ops, flush)}
+            out[name].append(entry)
+    wplanes, sy, sx, bh, bw = _warp_smooth(DEEP_BATCH_SHAPE, dev, seed=310)
+    lo, hi = (t.reshape(-1).contiguous() for t in warp.live_range(wplanes[0], bh, bw))
+    out["warp_cubic"].append({
+        "shape": list(DEEP_BATCH_SHAPE), "max_abs_err": err["warp_cubic"], "library_ms": None,
+        **_row_times(lambda: wc.launch(*wplanes, sy, sx, bh, bw, lo, hi, 6),
+                     lambda: wc.warp_sample_cubic_plain(*wplanes, sy, sx, 6, bh, bw),
+                     _bytes(*wplanes, sy, sx, bh, bw, lo, hi) + 3 * _bytes(sy),
+                     WARP_CUBIC_OPS * sy.numel(), flush)})
+    for name, entries in out.items():
+        for e in entries:
+            print(f"kernels: {name} at {e['shape']} (past the coarse rows) {e['ms']:.4f} ms, "
+                  f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms", flush=True)
+    return out
 
 
 def _conv_inputs(n, ci, co, h, w, dtype, dev, seed):
@@ -1029,10 +1095,12 @@ def _record_signs(model, signs):
 def _sign_flips(got, want):
     """Pixels whose LeakyReLU branch differs between two forwards' signs
     (``_record_signs``); a fused layer's padded canvas is cut to its
-    centre."""
+    centre; a layer whose ``want`` is None is not counted."""
     _check(len(got) == len(want), f"{len(got)} vs {len(want)} ConvLayer calls")
     flips = 0
     for a, b in zip(got, want):
+        if b is None:
+            continue
         if a.shape[-1] > b.shape[-1]:
             a = a[..., 1:-1, 1:-1]
         elif b.shape[-1] > a.shape[-1]:
@@ -1642,32 +1710,33 @@ TEST_PATIENT_SLICES = 24
 INFER_WORKERS = 4       # the host threads of HD95: the inference CLI's default
 
 
-def make_test_fold(root, seed, num_slices=TEST_FOLD_SLICES):
+def make_test_fold(root, seed, num_slices=TEST_FOLD_SLICES, size=None):
     """Write ``num_slices`` seeded synthetic CHAOS test slices of 256x256
-    (the phantoms of ``write_synthetic_dataset``) and the split file that
-    names them as fold 1's test set, under ``root``.  Inference reads no
-    scribble, so each slice's is all ignore (the skeleton scribbles would
-    take ~0.2 s a slice of host time)."""
+    (or ``size``; the phantoms of ``write_synthetic_dataset``) and the split
+    file that names them as fold 1's test set, under ``root``.  Inference
+    reads no scribble, so each slice's is all ignore (the skeleton
+    scribbles would take ~0.2 s a slice of host time)."""
     from pacingpseudo_torch.data.synthetic import make_phantom
 
     spec = _experiment_config().spec
+    size = tuple(size or spec.input_size)
     t0 = time.perf_counter()
     slices = os.path.join(root, "chaos", "slices")
     split = os.path.join(root, "chaos", "train_test_split", "five_fold_split", "t1")
     os.makedirs(slices)
     os.makedirs(split)
     rng = np.random.RandomState(seed)
-    scb = np.full(spec.input_size, spec.ignored_index, np.float32)
+    scb = np.full(size, spec.ignored_index, np.float32)
     names = []
     for i in range(num_slices):
-        img, lab = make_phantom(rng, spec.input_size, spec.num_classes, "easy")
+        img, lab = make_phantom(rng, size, spec.num_classes, "easy")
         uid = f"pat{i // TEST_PATIENT_SLICES:03d}_slice{i % TEST_PATIENT_SLICES:03d}"
         np.savez(os.path.join(slices, uid + ".npz"), uid=uid, img=img,
                  lab=lab.astype(np.float32), scb=scb)
         names.append(f"slices/{uid}.npz")
     with open(os.path.join(split, f"test_fold{_experiment_config().fold}.txt"), "w") as f:
         f.write("\n".join(names) + "\n")
-    print(f"inference: wrote {num_slices} synthetic {spec.input_size} test slices of "
+    print(f"inference: wrote {num_slices} synthetic {size} test slices of "
           f"{-(-num_slices // TEST_PATIENT_SLICES)} patients in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -2576,26 +2645,32 @@ DP_DTYPES = ("float32", "bfloat16")
 DP_NUDGE = {"float32": 1e-7, "bfloat16": 2.0 ** -8}
 
 
-def _rank_block(t, rows, n, split):
+def _rank_block(t, rows, n, split, space_index=0):
     """A rank's block (its ``rows``, a slice of a batch of ``n``, and on a
     space axis its heights of the ``HeightSplit`` ``split``) of a tensor of
     the single-card forward: ``2n`` rows (weak, strong) where the two
-    streams share the backbone, else ``n``."""
+    streams share the backbone, else ``n``.  A level below the split level
+    is whole on every space rank: the block of space rank 0, None on the
+    others (its flips count once)."""
     if t.shape[0] == 2 * n:
         t = torch.cat([t[rows], t[n + rows.start:n + rows.stop]])
     else:
         t = t[rows]
     if split is not None:
+        if split.replicated(t.shape[-1]):
+            return t if space_index == 0 else None
         t = t[..., split.rows(t.shape[-2] * split.stride // split.height), :]
     return t
 
 
-def _dp_rank(rank, devices, store, work, n_space=1):
+def _dp_rank(rank, devices, store, work, n_space=1, config_kw=None):
     """One rank of ``train (data-parallel)`` or, with ``n_space > 1``, of
-    ``train (height-sharded)`` (a spawned process).  For each compute dtype
-    of ``DP_DTYPES``: three single-card eager updates and the update on the
-    ranks, all from the checkpoint in ``work`` on the raw batch there, and
-    their checks; then, where the ranks have a card each, the timed
+    ``train (height-sharded)`` (a spawned process); ``config_kw`` replaces
+    fields of the Experiment config (``train (height-sharded, past the
+    coarse rows)``).  For each compute dtype of ``DP_DTYPES``: three
+    single-card eager updates and the update on the ranks, all from the
+    checkpoint in ``work`` on the raw batch there, and their checks; then,
+    where the ranks have a card each, the timed
     updates.  Writes ``rank<r>.json``."""
     import dataclasses
 
@@ -2613,15 +2688,17 @@ def _dp_rank(rank, devices, store, work, n_space=1):
     ranks = mesh.init_rank_group(rank, devices, store, n_space)
     dev = ranks.device
     phase = ("train (data-parallel" if n_space == 1 else
-             f"train (height-sharded, data {ranks.n_data} x space {n_space}")
+             f"train (height-sharded{', past the coarse rows' if config_kw else ''}, "
+             f"data {ranks.n_data} x space {n_space}")
     counters = (fl, wt, wc, fc)
-    config = _experiment_config()
+    config = dataclasses.replace(_experiment_config(), **(config_kw or {}))
     augment_fn = make_train_augment_fn(*_augment_params(config), True)
     raw = {k: v.to(dev) for k, v in torch.load(os.path.join(work, "raw.pt")).items()}
     want = torch.load(os.path.join(work, "augmented.pt"))
     n, rows = config.batch_size, ranks.rows(config.batch_size)
-    split = (spatial.HeightSplit.of(config.spec.input_size[0], config.output_stride, n_space,
-                                    ranks.space_index) if n_space > 1 else None)
+    height, width = _augment_params(config)[0].crop_size
+    split = (spatial.HeightSplit.of(height, config.output_stride, n_space, ranks.space_index,
+                                    width) if n_space > 1 else None)
     captured = {}
 
     def capture(raw_batch, gen):
@@ -2705,7 +2782,7 @@ def _dp_rank(rank, devices, store, work, n_space=1):
                f"{name}: the ranks' parameters, BN statistics or bank differ")
         # Branch flips: this rank's block against the single-card
         # forward's, summed over the ranks.
-        mine = _sign_flips(signs["ranks"], [_rank_block(t, rows, n, split)
+        mine = _sign_flips(signs["ranks"], [_rank_block(t, rows, n, split, ranks.space_index)
                                             for t in signs["eager"]])
         flips = {"ranks": int(ranks.sum(torch.tensor([mine], device=dev)).item())}
         flips.update({r: _sign_flips(signs[r], signs["eager"]) for r in EAGER_RUNS[1:]})
@@ -2761,10 +2838,12 @@ def _rank_devices(dev, world):
     return [torch.device("cuda", i) for i in range(world)] if cards >= world else [dev] * world
 
 
-def _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, world, n_space=1):
+def _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, world, n_space=1,
+                   config_kw=None):
     """The update on ``world`` ranks (``n_space`` of them a space axis) held
     against the single-card eager update (``_dp_rank``), from a checkpoint
-    taken after one eager update on ``raws[0]``, on ``raws[1]``.  Prints the
+    taken after one eager update on ``raws[0]``, on ``raws[1]``; the
+    Experiment config with ``config_kw``'s fields replaced.  Prints the
     checks and, where the ranks have a card each, the median update on them
     beside ``single_ms``.  Returns each rank's result."""
     from pacingpseudo_torch.aug.engine import make_train_augment_fn
@@ -2779,9 +2858,9 @@ def _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, world, n_space=1)
     print(f"{name}: world {world} (data {world // n_space} x space {n_space}), backend "
           f"{backend}, ranks on {', '.join(map(str, devices))} ({torch.cuda.device_count()} "
           f"card(s) on this machine)", flush=True)
-    config = _experiment_config()
+    config = dataclasses.replace(_experiment_config(), **(config_kw or {}))
     augment_fn = make_train_augment_fn(*loop._augment_params(config), True)
-    work = os.path.join(data_root, f"ranks_{world}x{n_space}")
+    work = os.path.join(data_root, f"ranks_{world}x{n_space}" + ("_deep" if config_kw else ""))
     os.makedirs(work)
     state = create_train_state(config, device=dev, seed=11)
     gen = torch.Generator(device=dev)
@@ -2796,7 +2875,8 @@ def _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, world, n_space=1)
     del state, want
     _release_memory()
     t0 = time.perf_counter()
-    mesh.spawn_ranks(_dp_rank, world, (devices, os.path.join(work, "store"), work, n_space))
+    mesh.spawn_ranks(_dp_rank, world, (devices, os.path.join(work, "store"), work, n_space,
+                                       config_kw))
     results = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(world)]
     for dtype in DP_DTYPES:
         print(f"{name} {dtype}: {smi}: each rank's augmented rows == the single-card batch's "
@@ -2966,6 +3046,83 @@ def phase_height_sharded(dev, data_root, raws, smi, single_ms):
           f"{', '.join(map(str, devices))}: 1 epoch of {SP_LOOP_STEPS} steps ({dispatch}) "
           f"and the validation in {seconds:.1f} s with the ranks' start, epoch (s, "
           f"slices/s) {epochs}, metrics {epoch_metrics}", flush=True)
+    return paths
+
+
+def phase_height_sharded_deep(dev, data_root, raws, smi):
+    """``train (height-sharded, past the coarse rows)``: the Experiment
+    session at full width (init_ch 32, max_ch 512, hid_ch 64, the four
+    flags, bf16, batch 12) on 48x48 images at output stride 16, whose
+    coarsest level has 3 rows, on ``DEEP_WORLD`` = 4 space ranks: the split
+    is cut at the 6-row level and the levels below it are replicated
+    (``parallel/spatial.py``).  NCCL on 4 cards where the machine has them,
+    else the 4 ranks on ``cuda:0`` over gloo.  First one card's eager update
+    at this shape, timed (median of ``DEEP_TIMED`` after 3); then each rank
+    (``_dp_rank``) holds its update against the single-card eager update as
+    ``train (height-sharded)`` does (float32 and bf16, beside nudged
+    updates' spread, the LeakyReLU flips of each rank's block summed, the
+    replicated levels' counted once), checks its augmented rows, equal
+    replicas and banks, and that it launched ``fused_loss_fwd``,
+    ``fused_loss_bwd`` and ``warp_cubic`` once, and times its update on
+    cards of its own (NCCL); then
+    ``train_driver`` with ``spatial_shards=4`` on the 4 ranks (1 epoch of
+    ``SP_LOOP_STEPS`` steps: replayed on NCCL, eager on gloo) and the
+    validation, whose log must say ``mesh data=1 x space=4``.  Returns each
+    rank's launches."""
+    from pacingpseudo_torch.aug.engine import make_train_augment_fn
+    from pacingpseudo_torch.parallel import mesh
+    from pacingpseudo_torch.train import loop
+    from pacingpseudo_torch.train.state import create_train_state
+    from pacingpseudo_torch.train.step import make_pacing_train_step, seed_step
+
+    name = "train (height-sharded, past the coarse rows)"
+    config = dataclasses.replace(_experiment_config(), **DEEP_CONFIG)
+    augment_fn = make_train_augment_fn(*loop._augment_params(config), True)
+    state = create_train_state(config, device=dev, seed=13)
+    step = make_pacing_train_step(config, 100, augment_fn=augment_fn)
+    gen = torch.Generator(device=dev)
+    times = []
+    for _ in range(3 + DEEP_TIMED):
+        seed_step(gen, dev, config.seed, state.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, raws[1], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _check(all(math.isfinite(float(v)) for v in metrics.values()),
+           f"{name}: one card's update at {DEEP_CONFIG}: {metrics}")
+    single_ms = statistics.median(times[3:])
+    print(f"{name}: {smi}: one card's eager update at {DEEP_CONFIG}: median "
+          f"{single_ms:.3f} ms", flush=True)
+    del state, step
+    _release_memory()
+    paths = {}
+    results = _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, DEEP_WORLD,
+                             DEEP_WORLD, DEEP_CONFIG)
+    for r, res in enumerate(results):
+        paths[f"{name}, rank {r}"] = res["launches"][config.compute_dtype]
+    _release_memory()
+
+    devices = _rank_devices(dev, DEEP_WORLD)
+    loop_config = dataclasses.replace(config, epoch=1, ckp_interval=1, device_resident_data="on",
+                                      num_devices=DEEP_WORLD, spatial_shards=DEEP_WORLD)
+    run_dir = os.path.join(data_root, "runs", "height_sharded_deep")
+    t0 = time.perf_counter()
+    loop.train_driver(loop_config, data_root, run_dir, max_steps_per_epoch=SP_LOOP_STEPS,
+                      device=devices)
+    seconds = time.perf_counter() - t0
+    log, epochs, epoch_metrics = _loop_epochs(run_dir)
+    dispatch = _loop_dispatch(min(loop_config.steps_per_dispatch, SP_LOOP_STEPS),
+                              mesh.backend_for(devices))
+    _check(f"mesh data=1 x space={DEEP_WORLD}" in log and dispatch in log
+           and f"over {mesh.backend_for(devices)}" in log and "val: 000" in log
+           and len(epochs) == 1
+           and all(math.isfinite(v) for m in epoch_metrics for v in m.values()),
+           f"{name}: the loop on the ranks did not run as planned:\n{log[-2000:]}")
+    print(f"{name}: {smi}: train_driver with spatial_shards={DEEP_WORLD}, {DEEP_CONFIG}, "
+          f"on {', '.join(map(str, devices))}: 1 epoch of {SP_LOOP_STEPS} "
+          f"steps ({dispatch}) and the validation in {seconds:.1f} s with the ranks' start, "
+          f"epoch (s, slices/s) {epochs}, metrics {epoch_metrics}", flush=True)
     return paths
 
 
@@ -3193,7 +3350,7 @@ SHARDED_SLICE_PIXELS_MAX = 2e-3
 
 
 def sharded_inference_diff(dev, data_root, model_kwargs, checkpoint, shards=2,
-                           batch_size=8):
+                           batch_size=8, slices=TEST_FOLD_SLICES, name="inference (height-sharded)"):
     """``run_inference`` (bf16) on the test fold of ``make_test_fold``
     under ``data_root`` from ``checkpoint`` on one card, then with
     ``spatial_shards=shards`` on ``shards`` ranks (a card each where there
@@ -3215,22 +3372,24 @@ def sharded_inference_diff(dev, data_root, model_kwargs, checkpoint, shards=2,
                                   spatial_shards=n)
         runs[tag] = (res, out_dir)
     (one, one_dir), (sp, sp_dir) = runs["one card"], runs[f"space {shards}"]
-    _check(sp["uids"] == one["uids"] and len(one["uids"]) == TEST_FOLD_SLICES,
-           f"inference (height-sharded): uids differ or {len(one['uids'])} slices")
+    _check(sp["uids"] == one["uids"] and len(one["uids"]) == slices,
+           f"{name}: uids differ or {len(one['uids'])} slices")
     differ = [int((np.load(os.path.join(one_dir, "preds", f"{uid}.npz"))["pred"]
                    != np.load(os.path.join(sp_dir, "preds", f"{uid}.npz"))["pred"]).sum())
               for uid in one["uids"]]
     saved = np.load(os.path.join(sp_dir, "eval_data.npz"))
-    _check(saved["dicearr"].shape == (TEST_FOLD_SLICES, spec.num_classes)
+    _check(saved["dicearr"].shape == (slices, spec.num_classes)
            and list(saved["uids"]) == one["uids"],
-           f"inference (height-sharded): eval_data.npz {saved['dicearr'].shape}")
+           f"{name}: eval_data.npz {saved['dicearr'].shape}")
     return one, sp, differ
 
 
-def phase_inference_sharded(dev, data_root, config, checkpoint, smi):
-    """``inference (height-sharded)``: :func:`sharded_inference_diff` on 2
-    ranks.  The pixels predicted differently from one card must stay
-    within ``SHARDED_PIXELS_MAX`` of the fold's and
+def phase_inference_sharded(dev, data_root, config, checkpoint, smi, shards=2,
+                            slices=TEST_FOLD_SLICES, name="inference (height-sharded)"):
+    """``inference (height-sharded)``: :func:`sharded_inference_diff` on
+    ``shards`` ranks, the model of ``config``, on the ``slices`` test slices
+    under ``data_root``.  The pixels predicted differently from one card
+    must stay within ``SHARDED_PIXELS_MAX`` of the fold's and
     ``SHARDED_SLICE_PIXELS_MAX`` of each slice's, and each slice's Dice
     and HD95 must equal the single-card run's wherever the two runs
     predicted the same slice.  Prints the counts and each run's slices/s
@@ -3238,23 +3397,27 @@ def phase_inference_sharded(dev, data_root, config, checkpoint, smi):
     kwargs = dict(input_ch=config.input_ch, init_ch=config.init_ch, max_ch=config.max_ch,
                   output_stride=config.output_stride, is_stride_conv=config.is_stride_conv,
                   is_trans_conv=config.is_trans_conv)
-    one, sp, differ = sharded_inference_diff(dev, data_root, kwargs, checkpoint)
-    plane = 256 * 256
+    one, sp, differ = sharded_inference_diff(dev, data_root, kwargs, checkpoint, shards,
+                                             slices=slices, name=name)
+    sizes = [np.load(os.path.join(data_root, "chaos", "slices", f"{uid}.npz"))["img"].shape
+             for uid in one["uids"][:1]]
+    plane = sizes[0][0] * sizes[0][1]
     total, worst = sum(differ), max(differ)
-    _check(total <= SHARDED_PIXELS_MAX * TEST_FOLD_SLICES * plane
+    _check(total <= SHARDED_PIXELS_MAX * slices * plane
            and worst <= SHARDED_SLICE_PIXELS_MAX * plane,
-           f"inference (height-sharded): {total} predicted pixels of "
-           f"{TEST_FOLD_SLICES * plane} differ from one card's, {worst} in one slice "
+           f"{name}: {total} predicted pixels of "
+           f"{slices * plane} differ from one card's, {worst} in one slice "
            f"(limits {SHARDED_PIXELS_MAX:g} and {SHARDED_SLICE_PIXELS_MAX:g} of them)")
     for i, (uid, n) in enumerate(zip(one["uids"], differ)):
         if n == 0:
             for key in ("dicearr", "hd95arr"):
                 _check(np.array_equal(sp[key][i], one[key][i], equal_nan=True),
-                       f"inference (height-sharded): {uid}'s {key} {sp[key][i]} on 2 ranks, "
+                       f"{name}: {uid}'s {key} {sp[key][i]} on {shards} ranks, "
                        f"{one[key][i]} on one card, with the same prediction")
-    print(f"inference (height-sharded): {smi}: {TEST_FOLD_SLICES} test slices, bf16, "
-          f"spatial_shards 2 on {', '.join(map(str, _rank_devices(dev, 2)))}: {total} "
-          f"predicted pixels of {TEST_FOLD_SLICES * plane} differ from the single-card "
+    print(f"{name}: {smi}: {slices} test slices of {sizes[0]}, bf16, output stride "
+          f"{config.output_stride}, spatial_shards {shards} on "
+          f"{', '.join(map(str, _rank_devices(dev, shards)))}: {total} "
+          f"predicted pixels of {slices * plane} differ from the single-card "
           f"run's (limit {SHARDED_PIXELS_MAX:g} of them), in {sum(n > 0 for n in differ)} "
           f"slices, at most {worst} in one (limit {SHARDED_SLICE_PIXELS_MAX:g} of a slice's); "
           f"every other slice's Dice and HD95 equal; the whole "
@@ -3417,6 +3580,16 @@ def phase_profile_dir(data_root, smi):
           f"logged it", flush=True)
 
 
+def _print_clocks(when: str) -> None:
+    """The card's SM and memory clocks, power draw and temperature, as
+    ``nvidia-smi`` reads them, so that a kernel's time can be told from the
+    card's state."""
+    query = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+    line = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    print(f"clocks {when}: {query}: {line.splitlines()[0]}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs on a GPU only")
@@ -3457,8 +3630,10 @@ def main() -> None:
     raw_kernels = {**loss_kernels, warp_kernel: 1}
     other_kernels = {**loss_kernels, warp_kernels[other_route]: 1}
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=dev)
+    _print_clocks("before the kernels phase")
     rows = phase_kernels(fl, wt, wc, warp, dev)
     conv_rows = time_conv_kernels(fc, dev, check_conv_kernels(fc, dev), flush)
+    _print_clocks("after the kernels phase")
     check_weight_grad(fc, dev)
     phase_parity(dev)
     phase_parity_fused(fc, dev)
@@ -3524,6 +3699,7 @@ def main() -> None:
         replay_raw = next(raw_batches)
         dp_raws = [next(raw_batches), next(raw_batches)]
         sp_raws = [next(raw_batches), next(raw_batches)]
+        deep_raws = [next(raw_batches), next(raw_batches)]
         rg_raws = [next(raw_batches) for _ in range(GR_TIMED)]
         raw_batches.close()
         print(f"train (raw, upper bound): {smi}: median step {ub_ms:.3f} ms "
@@ -3539,6 +3715,15 @@ def main() -> None:
                         (("upper bound (bare)", ub_config, ub_checkpoint),
                          ("experiment (siamese)", config, exp_checkpoint)), smi)
         phase_inference_sharded(dev, test_root, config, exp_checkpoint, smi)
+        # The same checkpoint's weights at output stride 32 (the strides and
+        # dilations differ, the parameters do not) on 96x96 slices: 3 coarse
+        # rows on 4 space ranks.
+        deep_root = os.path.join(root, "test_deep")
+        make_test_fold(deep_root, config.seed, DEEP_TEST_SLICES, DEEP_INFER["input_size"])
+        phase_inference_sharded(dev, deep_root,
+                                dataclasses.replace(config, **DEEP_INFER), exp_checkpoint,
+                                smi, shards=DEEP_WORLD, slices=DEEP_TEST_SLICES,
+                                name="inference (height-sharded, past the coarse rows)")
         loop_root = os.path.join(root, "loop")
         make_loop_pool(loop_root, config.seed)
         loop_launches = phase_loop_graph(dev, counters, loop_root, smi)
@@ -3548,8 +3733,10 @@ def main() -> None:
         _release_memory()
         sp_launches = phase_height_sharded(dev, loop_root, sp_raws, smi, raw_ms)
         _release_memory()
+        deep_launches = phase_height_sharded_deep(dev, loop_root, deep_raws, smi)
+        _release_memory()
         rg_launches = phase_ranks_graph(dev, loop_root, rg_raws, smi, one_card)
-        del dp_raws, sp_raws, rg_raws
+        del dp_raws, sp_raws, deep_raws, rg_raws
         study_launches = phase_study_tiny(root, counters, smi)
 
         # Profiler sessions last: none is followed by a timed phase.
@@ -3563,7 +3750,7 @@ def main() -> None:
              "train (raw, upper bound, fused conv)": ub_fused_launches,
              **graph_paths, "loop (resident, graph)": loop_launches,
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
-             **sp_launches, **rg_launches,
+             **sp_launches, **deep_launches, **rg_launches,
              "study (tiny), Experiment arm": study_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw

@@ -24,8 +24,10 @@ squares and count are summed over the ranks by
 ``parallel.mesh.sum_over_ranks`` (height shards may be unequal: the count
 is summed, not taken as the rank's times the world), whose backward sums the statistics'
 gradients (the channel sums Σdy and Σdy·x̂ of the BN backward) over the
-ranks in turn.  The running statistics then update identically on every
-rank.
+ranks in turn.  A level below a height split's split level is replicated on
+the space axis (``parallel/spatial.py``): its statistics are one copy's,
+summed over the data axis only.  The running statistics then update
+identically on every rank.
 
 Parameter and buffer names are ``nn.BatchNorm2d``'s (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so the
@@ -54,6 +56,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
         self.ranks = None     # a parallel.mesh.RankGroup: sync BN over its ranks
+        self.shard = None     # a parallel.spatial.Shard: the batch's height split
 
     def forward(self, x):
         x32 = x.float()
@@ -62,10 +65,14 @@ class BatchNorm2d(nn.Module):
                 mean = x32.mean(dim=(0, 2, 3))
                 mean_sq = x32.square().mean(dim=(0, 2, 3))
             else:
+                # A replicated level's tensor is one copy of the space
+                # axis: its statistics sum over the data axis only.
+                replicated = self.shard is not None and self.shard.split.whole(*x.shape[-2:])
+                axis = "data" if replicated else "world"
                 count = x32.new_full((x32.shape[1],), x32.numel() // x32.shape[1])
                 sums = sum_over_ranks(torch.stack([x32.sum(dim=(0, 2, 3)),
                                                    x32.square().sum(dim=(0, 2, 3)), count]),
-                                      self.ranks)
+                                      self.ranks, axis)
                 mean, mean_sq = sums[:2] / sums[2]
             var = (mean_sq - mean.square()).clamp_min(0.0)
             self.update_running_stats(mean, var)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from pacingpseudo_torch.models.norm import BatchNorm2d
 from pacingpseudo_torch.ops.fused_convbn import (conv_bn_lrelu_train, fusable,
                                                  get_conv_impl)
-from pacingpseudo_torch.ops.resize import upsample2x_align_corners
+from pacingpseudo_torch.ops.resize import bilinear_resize_align_corners
 from pacingpseudo_torch.parallel import spatial
 
 NEGATIVE_SLOPE = 1e-2   # LeakyReLU of every ConvLayer (reference unet.py:193)
@@ -45,7 +45,8 @@ class Conv2d(nn.Conv2d):
     bias are cast, the parameters stay float32.  On a height shard
     (``shard``, set by ``parallel.mesh.attach_ranks``) a padded conv takes
     its rows beyond the shard's edge from the neighbouring shards
-    (``parallel.spatial.conv2d``) and pads only the width with zeros."""
+    (``parallel.spatial.conv2d``) and pads only the width with zeros; a
+    replicated input (below the split level) is convolved whole."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  dilation=1, bias=True, compute_dtype=torch.float32,
@@ -59,9 +60,10 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        if self.shard is not None:
+        shard = spatial.local_shard(x, self.shard)
+        if shard is not None:
             return spatial.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                                  self.padding, self.dilation, self.shard)
+                                  self.padding, self.dilation, shard)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
                         self.padding, self.dilation)
 
@@ -159,17 +161,26 @@ class DoubleConv(nn.Module):
 
 
 class EncBlock(nn.Module):
-    """Encoder block (reference unet.py:100-127)."""
+    """Encoder block (reference unet.py:100-127).  On a height shard
+    (``shard``) a block whose pool or stride-2 conv goes below the split
+    level takes the whole height first (``parallel.spatial.gather_whole``):
+    the levels below it are replicated."""
 
     def __init__(self, in_ch, out_ch, do_subsamp=True, is_stride_conv=False,
                  dilation=1, dtype=torch.float32, device=None):
         super().__init__()
+        self.subsamp = do_subsamp
         self.max_pool = do_subsamp and not is_stride_conv
         stride1 = 2 if do_subsamp and is_stride_conv else 1
         self.conv_block = DoubleConv(in_ch, out_ch, stride1, dilation, dtype,
                                      device)
+        self.shard = None
 
     def forward(self, x):
+        shard = spatial.local_shard(x, self.shard)
+        if (self.subsamp and shard is not None
+                and shard.split.replicated(x.shape[-1] // 2)):
+            x = spatial.gather_whole(x, shard)
         if self.max_pool:
             x = F.max_pool2d(x, 2, 2)
         return self.conv_block(x)
@@ -181,8 +192,11 @@ class DecBlock(nn.Module):
     ``up_factor`` 1 skips the upsample (the stride-1 stages of output
     stride 8/16); the transposed-conv variant maps ``in_ch`` to
     ``skip_ch`` with a ``up_factor`` kernel and stride.  On a height shard
-    (``shard``) the upsample is the sharded resize of ``ops/resize.py``;
-    the transposed conv, whose kernel equals its stride, stays local.
+    (``shard``) the upsample is the sharded resize of ``ops/resize.py``
+    to the skip's rows; the transposed conv, whose kernel equals its stride,
+    stays local.  Where the input is replicated and the skip a shard (the
+    decoder reaching the split level again), the upsampled input is cut to
+    the shard's rows (``parallel.spatial.own_rows``).
     """
 
     def __init__(self, in_ch, skip_ch, out_ch, up_factor=2,
@@ -202,8 +216,10 @@ class DecBlock(nn.Module):
     def forward(self, x, skip):
         if self.up_samp is not None:
             x = self.up_samp(x)
+            if x.shape[-2] != skip.shape[-2]:
+                x = spatial.own_rows(x, self.shard)
         elif self.up_factor != 1:
-            x = upsample2x_align_corners(x, self.shard)
+            x = bilinear_resize_align_corners(x, skip.shape[-2], skip.shape[-1], self.shard)
         return self.conv_block(torch.cat([x, skip.to(x.dtype)], dim=1))
 
 

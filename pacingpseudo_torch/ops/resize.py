@@ -26,8 +26,3 @@ def bilinear_resize_align_corners(x, out_h: int, out_w: int, shard=None):
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=True)
 
-
-def upsample2x_align_corners(x, shard=None):
-    """2x bilinear upsample, align_corners=True (the decoder's upsample)."""
-    h, w = x.shape[-2:]
-    return bilinear_resize_align_corners(x, 2 * h, 2 * w, shard)

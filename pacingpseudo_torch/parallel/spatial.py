@@ -8,12 +8,31 @@ module writes each exchange out, on the rank group of ``parallel/mesh.py``
 n_space`` of the batch and heights ``r % n_space`` of the image, as JAX's
 ``train_mesh`` lays out its devices).
 
-* The split is taken on the **coarsest** level: the model's ``H /
-  output_stride`` rows are cut into ``n_space`` contiguous runs as equal as
-  they can be (:func:`height_runs`: 7, 7, 6, 6, 6 for 32 rows on 5 shards),
-  and each finer level's boundaries are the coarse ones times its stride.
-  So every 2x2 max-pool and stride-2 conv stays on its shard, and shards
-  may be unequal: every count is summed over the ranks.
+* The split is taken on the **split level**: the coarsest level of the
+  model (``H / output_stride`` rows) when it has a row a shard or more,
+  else the coarsest finer level that does (:class:`HeightSplit`).  Its rows
+  are cut into ``n_space`` contiguous runs as equal as they can be
+  (:func:`height_runs`: 7, 7, 6, 6, 6 for 32 rows on 5 shards), and each
+  finer level's boundaries are the split level's times its stride.  So
+  every 2x2 max-pool and stride-2 conv down to the split level stays on its
+  shard, and shards may be unequal: every count is summed over the ranks.
+* The levels below the split level (where the coarsest level has fewer
+  rows than there are shards) are **replicated**: the op that goes below
+  the split level takes the whole height (:func:`gather_whole`, whose
+  backward sums the shards' cotangents over the space axis and hands each
+  its own rows), every coarser level is computed whole on every space
+  rank, and the decoder cuts its rows again where it reaches the split
+  level (:func:`own_rows`).  Each rank back-propagates only its own rows'
+  loss through the replicated levels, so their parameter gradients are
+  partial sums that the grid's gradient sum adds once; their BatchNorm
+  statistics are one copy's, summed over the data axis only
+  (``models/norm.py``).  A tensor's width names its level
+  (:meth:`HeightSplit.replicated`: whether the level lies below the split
+  level), and its height against the width whether it is whole
+  (:meth:`HeightSplit.whole`, :func:`local_shard`): the split level's
+  input to the op that goes below it is whole after the gather, and the
+  transposed conv's output back at the split level is whole until
+  :func:`own_rows` cuts it.
 * :func:`shard_batch` cuts a batch to this rank's block, rows and heights
   (``make_spatial_constraint``'s counterpart, applied at the same point:
   after the augmentation, before the model), and returns it with its
@@ -25,7 +44,8 @@ n_space`` of the batch and heights ``r % n_space`` of the image, as JAX's
   backward returns each halo row's gradient to the rank that owns the row.
   ``k`` may exceed a neighbour's height: the halo then spans several.
 * :func:`gather_heights` assembles the whole height of a sharded tensor
-  (the memory bank's features, inference's predictions).
+  (the memory bank's features, inference's predictions); a replicated one
+  is whole already.
 
 Every exchange is an ``all_reduce`` SUM over the space group of a
 zero-filled buffer in which each rank fills its own slot (exact: one rank
@@ -46,6 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pacingpseudo_torch.ops.resize import bilinear_resize_align_corners
 from pacingpseudo_torch.parallel.mesh import RankGroup, attach_ranks
 
 
@@ -61,41 +82,83 @@ def height_runs(h_coarse: int, n_space: int) -> List[int]:
 def check_split(height: int, stride: int, n_space: int) -> None:
     """Exit with a message naming the sizes where an image of ``height``
     rows cannot be height-sharded ``n_space`` ways by a model of output
-    stride ``stride``: each shard needs at least one row of the coarsest
-    level."""
-    if height % stride or height // stride < n_space:
+    stride ``stride``.  The JAX package refuses what its UNet refuses: a
+    height that is not a multiple of the output stride (a 2x2 pool of an odd
+    height floors, and the decoder's upsample then misses its skip); GSPMD
+    pads any other split.  The port refuses that, and a split with more
+    space ranks than the image has rows, which needs more than 8 space
+    ranks (the output stride is 8 or more)."""
+    if height % stride:
         raise SystemExit(
-            f"height sharding: an image of {height} rows at output stride {stride} has "
-            f"{height / stride:g} rows at its coarsest level, which do not split over "
-            f"{n_space} space shards (each needs a whole coarse row or more)")
+            f"height sharding: an image of {height} rows at output stride {stride}: the "
+            f"height must be a multiple of the output stride (the UNet's 2x2 pools halve it "
+            f"{stride.bit_length() - 1} times and the decoder doubles it back)")
+    if height < n_space:
+        raise SystemExit(
+            f"height sharding: an image of {height} rows does not split over {n_space} "
+            f"space shards (each needs an image row or more)")
+
+
+def split_stride(height: int, stride: int, n_space: int) -> int:
+    """The stride of the split level: the coarsest level, of output stride
+    ``stride``, with at least ``n_space`` rows of an image of ``height``."""
+    s = stride
+    while s > 1 and height // s < n_space:
+        s //= 2
+    return s
 
 
 @dataclasses.dataclass(frozen=True)
 class HeightSplit:
-    """The split of an image of ``height`` rows whose coarsest level is
+    """The split of an image of ``height`` rows whose split level is
     ``height // stride`` rows, cut in ``runs``; ``index`` is this rank's
-    shard."""
+    shard.  ``width``, the image's width, is set where levels below the
+    split level are replicated (a level is told by its width, a whole
+    tensor by its height against its width); None where the split level is
+    the model's coarsest."""
     height: int
     stride: int
     runs: Tuple[int, ...]
     index: int
+    width: Optional[int] = None
 
     @classmethod
-    def of(cls, height: int, stride: int, n_space: int, index: int) -> "HeightSplit":
+    def of(cls, height: int, stride: int, n_space: int, index: int,
+           width: Optional[int] = None) -> "HeightSplit":
+        """The split of an image of ``height`` x ``width`` by a model of
+        output stride ``stride``; ``width`` is needed where the coarsest
+        level has fewer than ``n_space`` rows."""
         check_split(height, stride, n_space)
-        return cls(height, stride, tuple(height_runs(height // stride, n_space)), index)
+        s = split_stride(height, stride, n_space)
+        if s < stride and width is None:
+            raise ValueError(f"a split of {height} rows at output stride {stride} over "
+                             f"{n_space} shards replicates the levels below stride {s}: "
+                             f"it needs the image's width")
+        return cls(height, s, tuple(height_runs(height // s, n_space)), index,
+                   width if s < stride else None)
+
+    def replicated(self, w_local: int) -> bool:
+        """Whether a tensor ``w_local`` wide lies below the split level: it
+        is then whole in height on every space rank."""
+        return self.width is not None and self.width > w_local * self.stride
 
     def bounds(self, factor: int) -> List[int]:
-        """Every shard's first row at the level ``factor`` times the coarse
+        """Every shard's first row at the level ``factor`` times the split
         one, and the level's height last."""
         out = [0]
         for r in self.runs:
             out.append(out[-1] + r * factor)
         return out
 
+    def whole(self, h_local: int, w_local: int) -> bool:
+        """Whether a tensor of ``h_local`` x ``w_local`` is whole in height:
+        the image's aspect (a shard has fewer rows than its level).  Only
+        a split that replicates levels (``width`` set) has whole tensors."""
+        return self.width is not None and h_local * self.width == self.height * w_local
+
     def factor(self, h_local: int) -> int:
         """The level of a shard of ``h_local`` rows: its height over the
-        coarse level's."""
+        split level's."""
         run = self.runs[self.index]
         if h_local % run:
             raise ValueError(f"a shard of {h_local} rows is at no level of the split "
@@ -116,6 +179,52 @@ class Shard:
     split: HeightSplit
 
 
+def local_shard(x: torch.Tensor, shard: Optional[Shard]) -> Optional[Shard]:
+    """``shard`` where ``x`` is a height shard of it, None where ``x`` is
+    whole: no split, a level below the split level (replicated), or a split
+    level's tensor gathered whole or not yet cut (:meth:`HeightSplit.whole`)."""
+    if shard is None or shard.split.whole(*x.shape[-2:]):
+        return None
+    return shard
+
+
+def own_rows(x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """This shard's rows of ``x``, a replicated tensor whose width is that of
+    a level the split cuts (where the decoder reaches the split level
+    again).  Differentiable: the other rows' cotangents are zero, each
+    rank's own rows' loss back-propagates through the replicated levels."""
+    split = shard.split
+    factor = split.stride * x.shape[-1] // split.width
+    b = split.bounds(factor)
+    if x.shape[-2] != b[-1]:
+        raise ValueError(f"a tensor {x.shape[-1]} wide of {x.shape[-2]} rows is not whole "
+                         f"at its level ({b[-1]} rows)")
+    return x[..., b[split.index]:b[split.index + 1], :]
+
+
+class _GatherWhole(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.rows = shard, shard.split.rows(shard.split.factor(x.shape[-2]))
+        return gather_heights(x, shard)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = ctx.shard.ranks.sum_(grad.float().contiguous(), "space")
+        return total[..., ctx.rows, :].to(grad.dtype), None
+
+
+def gather_whole(x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The whole height of the height shard ``x``, for an op whose output
+    lies below the split level (a 2x2 pool or a stride-2 conv of the split
+    level).  Differentiable: every space rank back-propagates its own rows'
+    loss through the replicated levels, so the backward sums the ranks'
+    cotangents over the space axis (in float32) and hands each rank its own
+    rows."""
+    return _GatherWhole.apply(x, shard)
+
+
 def shard_batch(batch: Dict[str, torch.Tensor], ranks: RankGroup, stride: int,
                 rows: bool = True) -> Tuple[Dict[str, torch.Tensor], Optional[Shard]]:
     """This rank's block of a global batch: the rows of its data index (with
@@ -127,10 +236,11 @@ def shard_batch(batch: Dict[str, torch.Tensor], ranks: RankGroup, stride: int,
         batch = {k: ranks.local_rows(v) for k, v in batch.items()}
     if ranks.n_space == 1:
         return batch, None
-    heights = {v.shape[-2] for v in batch.values() if v.dim() >= 3}
-    if len(heights) != 1:
-        raise ValueError(f"the batch's leaves have heights {sorted(heights)}")
-    split = HeightSplit.of(heights.pop(), stride, ranks.n_space, ranks.space_index)
+    sizes = {tuple(v.shape[-2:]) for v in batch.values() if v.dim() >= 3}
+    if len(sizes) != 1:
+        raise ValueError(f"the batch's leaves have sizes {sorted(sizes)}")
+    height, width = sizes.pop()
+    split = HeightSplit.of(height, stride, ranks.n_space, ranks.space_index, width)
     keep = split.rows()
     return ({k: v[..., keep, :].contiguous() if v.dim() >= 3 else v for k, v in batch.items()},
             Shard(ranks, split))
@@ -321,7 +431,20 @@ def resize_align_corners(x, out_h: int, out_w: int, shard: Shard):
     halo row each side and the shard's rows of the global 1-D interpolation
     matrix (:func:`interp_matrix`) compute it; the width is resized whole.
     In float32, cast back to ``x``'s dtype.  ``F.interpolate`` on the shard
-    would take the shard's coordinates for the image's."""
+    would take the shard's coordinates for the image's.  A replicated ``x``
+    is resized whole and cut to the shard's rows (:func:`own_rows`)."""
+    split = shard.split
+    if split.whole(*x.shape[-2:]):
+        # A replicated input (the aux logits at a level below the split
+        # one): resized whole as one process resizes it, then cut to this
+        # shard's rows where the output's level is a split one.
+        if split.replicated(out_w):
+            return bilinear_resize_align_corners(x, out_h, out_w)
+        y = bilinear_resize_align_corners(x, split.height * out_w // split.width, out_w)
+        y = own_rows(y, shard)
+        if y.shape[-2] != out_h:
+            raise ValueError(f"a resize to {out_h} local rows: this shard has {y.shape[-2]}")
+        return y
     w_in = x.shape[-1]
     y = x.float()
     if x.shape[-2] != out_h:
@@ -334,9 +457,9 @@ def resize_align_corners(x, out_h: int, out_w: int, shard: Shard):
 
 def gather_heights(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
     """The whole height of a ``(..., h, W)`` tensor of the height shard
-    ``shard`` (None: ``t`` is whole): every space shard's rows in order,
-    outside autograd."""
-    if shard is None:
+    ``shard`` (None, or a replicated ``t``: ``t`` is whole): every space
+    shard's rows in order, outside autograd."""
+    if local_shard(t, shard) is None:
         return t.detach()
     split, index = shard.split, shard.ranks.space_index
     b = split.bounds(split.factor(t.shape[-2]))

@@ -3,6 +3,7 @@
     python3 scripts/data_parallel_cards.py
     python3 scripts/data_parallel_cards.py --phase space --spatial_shards 2
     python3 scripts/data_parallel_cards.py --phase graph
+    python3 scripts/data_parallel_cards.py --phase deep
 
 On one card this is ``chip_smoke.py``'s ``train (data-parallel)`` phase
 alone (two ranks sharing the card over gloo); with two cards or more the
@@ -15,7 +16,10 @@ space`` runs ``train (height-sharded)`` instead, and ``--phase graph``
 2, and data 2 x space 2 with four cards) held against the eager update on
 the same ranks and timed beside it, after one card's eager and replayed
 update of the same session (8 timed of each, ``_time_replay_and_eager``).
-After the phase, the epoch loop (2 epochs of 20 steps, the pool resident
+``--phase deep`` runs ``train (height-sharded, past the coarse rows)``: 48x48
+images at output stride 16 (3 coarse rows) on 4 space ranks, NCCL on four
+cards, its loop replayed, after one card's eager update at that shape; no
+loop follows it.  After the other phases, the epoch loop (2 epochs of 20 steps, the pool resident
 and sharded, ``steps_per_dispatch`` 8) on every card of the machine, one
 rank a card; its log must name the dispatch the ranks take.  Prints the
 cards' names and power limits first.  Exits non-zero if a check fails.
@@ -65,7 +69,7 @@ def single_card_ms(config, raws, dev):
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--phase", choices=["data", "space", "graph"], default="data")
+    p.add_argument("--phase", choices=["data", "space", "graph", "deep"], default="data")
     p.add_argument("--spatial_shards", type=int, default=0)
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -82,6 +86,12 @@ def main() -> None:
         raw_batches, _, config = cs.make_raw_pool(root, dev)
         raws = [next(raw_batches) for _ in range(cs.GR_TIMED)]
         raw_batches.close()
+        if args.phase == "deep":
+            loop_root = os.path.join(root, "loop")
+            cs.make_loop_pool(loop_root, config.seed)
+            print(f"launches by path: "
+                  f"{cs.phase_height_sharded_deep(dev, loop_root, raws[:2], smi)}", flush=True)
+            return
         augment_fn = make_train_augment_fn(*loop._augment_params(config), True)
         if args.phase == "graph":
             eager, replay, _ = cs._time_replay_and_eager(

@@ -3,7 +3,7 @@
     python scripts/quality_study_torch.py [--root study_torch] [--epochs 400]
         [--slices 1916] [--difficulty hard] [--seed 1]
         [--arms Control Experiment Upperbound] [--stop_after_epoch K]
-        [--gpu 0] [--device cuda|cpu] [-- <extra cli.train args>]
+        [--gpu 0] [--device cuda|cpu] [--r3_split] [-- <extra cli.train args>]
 
 The protocol of ``scripts/quality_study.sh``, through the port's own entry
 points.  For each arm: train with ``pacingpseudo_torch.cli.train`` on the
@@ -30,6 +30,12 @@ indices, as ``cli.train`` takes them): three arms on three cards are three
 calls, ``--arms X --gpu i`` each.  The study runs on a card: without CUDA
 it exits, unless ``--device cpu`` asks for the CPU.  What follows ``--`` is
 appended to every ``cli.train`` argv (a smaller model for a test).
+
+``--r3_split`` trains every seed's arms on the pool that the JAX package's
+``study_r3`` read: ``scripts/study_r3_pool_torch.py`` writes it once under
+``<root>/data`` (``--slices`` hard phantoms of seed 1, the folds every fifth
+slice), and ``cli.train`` runs without ``--synthetic_data``, which would cut
+today's patient-level folds again.
 """
 from __future__ import annotations
 
@@ -61,19 +67,22 @@ def arm_dir(root: str, arm: str, seed: int) -> str:
     return os.path.join(root, arm + suffix(seed))
 
 
-def data_root(root: str, seed: int) -> str:
-    """The pool of ``seed``'s arms (``cli.train`` writes it with that seed)."""
-    return os.path.join(root, "data" + suffix(seed))
+def data_root(root: str, seed: int, r3_split: bool = False) -> str:
+    """The pool of ``seed``'s arms (``cli.train`` writes it with that seed);
+    with ``r3_split`` the one pool of every seed."""
+    return os.path.join(root, "data" + ("" if r3_split else suffix(seed)))
 
 
 def train_argv(arm: str, root: str, epochs: int, slices: int, difficulty: str, seed: int,
-               gpu: str, extra: List[str] = ()) -> List[str]:
+               gpu: str, extra: List[str] = (), r3_split: bool = False) -> List[str]:
     """``cli.train``'s argv for one arm, as ``quality_study.sh:41-45`` builds
-    ``train_chaos.py``'s, with the seed and the devices added."""
+    ``train_chaos.py``'s, with the seed and the devices added; with
+    ``r3_split`` without the pool's flags (the pool is written beforehand)."""
+    pool = [] if r3_split else ["--synthetic_data", str(slices),
+                                "--synthetic_difficulty", difficulty]
     return ["--session", arm, "--tag", "study_torch", "--fold", "0", "--modality", "t1",
-            "--epoch", str(epochs), "--synthetic_data", str(slices),
-            "--synthetic_difficulty", difficulty,
-            "--data_root", data_root(root, seed),
+            "--epoch", str(epochs), *pool,
+            "--data_root", data_root(root, seed, r3_split),
             "--run_dir", os.path.join(arm_dir(root, arm, seed), "run-fold0"),
             "--max_restarts", "2", "--seed", str(seed), "--gpu", gpu,
             *ARM_FLAGS.get(arm, []), *extra]
@@ -85,10 +94,11 @@ def arm_config(argv: List[str]):
     return train_cli.config_from_args(train_cli.build_parser().parse_args(argv))
 
 
-def write_pool(argv: List[str]) -> None:
-    """The pool that ``cli.train`` writes for ``argv``, written under a lock
-    in the data directory: arms that start together (one a card) write it
-    once, and ``cli.train`` finds it in place."""
+def write_pool(argv: List[str], r3_slices: int = 0) -> None:
+    """The pool that ``cli.train`` writes for ``argv`` (or, ``r3_slices`` > 0,
+    ``study_r3``'s pool of that many slices), written under a lock in the
+    data directory: arms that start together (one a card) write it once, and
+    ``cli.train`` finds it in place."""
     import fcntl
 
     from pacingpseudo_torch.cli import train as train_cli
@@ -96,7 +106,11 @@ def write_pool(argv: List[str]) -> None:
     os.makedirs(args.data_root, exist_ok=True)
     with open(os.path.join(args.data_root, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        train_cli.write_synthetic_pool(args, train_cli.config_from_args(args))
+        if r3_slices:
+            from scripts.study_r3_pool_torch import write_pool as write_r3_pool
+            write_r3_pool(args.data_root, r3_slices)
+        else:
+            train_cli.write_synthetic_pool(args, train_cli.config_from_args(args))
 
 
 # The model's flags that cli.inference takes too: a study whose extra
@@ -141,7 +155,7 @@ def run_arm(arm: str, args, extra: List[str]) -> None:
         return
     run_dir = os.path.join(rd, "run-fold0")
     argv = train_argv(arm, args.root, args.epochs, args.slices, args.difficulty, args.seed,
-                      args.gpu, extra)
+                      args.gpu, extra, args.r3_split)
     last = _epoch_of(latest_checkpoint(run_dir))
     if last >= 0:
         argv.append("--resume")
@@ -149,7 +163,7 @@ def run_arm(arm: str, args, extra: List[str]) -> None:
     if stop is not None and last >= stop:
         _say(f"{arm}: trained to epoch {last} already")
     else:
-        write_pool(argv)
+        write_pool(argv, args.slices if args.r3_split else 0)
         _say(f"training {arm}" + (f" to epoch {stop}" if stop is not None else "")
              + (f" from the checkpoint of epoch {last}" if last >= 0 else ""))
         train_cli.main(argv, stop_after_epoch=stop)
@@ -160,7 +174,7 @@ def run_arm(arm: str, args, extra: List[str]) -> None:
         _say(f"{arm}: no best checkpoint yet, not evaluated")
         return
     _say(f"evaluating {arm}")
-    infer_cli.main(inference_argv(rd, data_root(args.root, args.seed), args.gpu,
+    infer_cli.main(inference_argv(rd, data_root(args.root, args.seed, args.r3_split), args.gpu,
                                   arm_config(argv)))
     shutil.copyfile(os.path.join(rd, "outputs", "Inference", DATASET, "run-fold0", "log.txt"),
                     os.path.join(rd, "eval.log"))
@@ -192,6 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gpu", default="0", help="CUDA indices for cli.train and cli.inference")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="'cpu' runs the study on the CPU; the default needs CUDA")
+    p.add_argument("--r3_split", action="store_true",
+                   help="train on study_r3's pool and fold split (every fifth slice)")
     return p
 
 

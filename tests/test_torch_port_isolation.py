@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "pacingpseudo_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pacingpseudo_tpu")
 STUDY_SCRIPTS = (ROOT / "scripts" / "quality_study_torch.py",
-                 ROOT / "scripts" / "quality_study_compare.py")
+                 ROOT / "scripts" / "quality_study_compare.py",
+                 ROOT / "scripts" / "study_r3_pool_torch.py")
 
 
 def _port_modules():

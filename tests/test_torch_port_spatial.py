@@ -247,14 +247,21 @@ def test_split_equals_jax(devices, batch, spatial_shards):
 
 
 def test_height_runs_and_refusal():
-    """The coarse rows split as equal as they can be, longer runs first; a
-    split with more shards than coarse rows exits naming the sizes."""
+    """The coarse rows split as equal as they can be, longer runs first.
+    More shards than coarse rows split at a finer level
+    (``tests/test_torch_port_spatial_deep.py``); what exits, naming the
+    sizes, is what the JAX UNet refuses (a height that is not a multiple of
+    the output stride) and more shards than image rows."""
     assert spatial.height_runs(32, 5) == [7, 7, 6, 6, 6]
     assert spatial.height_runs(32, 3) == [11, 11, 10]
     split = spatial.HeightSplit.of(256, 8, 3, 2)
     assert split.rows() == slice(176, 256) and split.rows(1) == slice(22, 32)
-    with pytest.raises(SystemExit, match="64 rows at output stride 8 has 8 rows"):
-        spatial.check_split(64, 8, 9)
+    spatial.check_split(64, 8, 9)
+    with pytest.raises(SystemExit, match="60 rows at output stride 8: the height must be a "
+                                         "multiple of the output stride"):
+        spatial.check_split(60, 8, 2)
+    with pytest.raises(SystemExit, match="64 rows does not split over 65 space shards"):
+        spatial.check_split(64, 8, 65)
 
 
 class _Grid:

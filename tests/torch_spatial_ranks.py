@@ -115,3 +115,76 @@ def loops(rank, devices, store, n_space, data_root, jobs):
         loop._train_driver(config, data_root, run_dir, device=devices[rank], ranks=ranks,
                            split=split)
     mesh.close_rank_group(ranks)
+
+
+def deep_grids(rank, devices, store):
+    """Two grids of a world of 8 ranks whose split goes below the coarsest
+    level: data 2 x space 4, and space 5 on ranks 0-4 (None on the
+    others)."""
+    import torch.distributed as dist
+
+    grids = {4: mesh.init_rank_group(rank, devices, store, 4)}
+    g5 = dist.new_group(list(range(5)))
+    grids[5] = mesh.RankGroup(g5, devices[rank], 5, space_group=g5) if rank < 5 else None
+    return grids
+
+
+def gather_whole(unit, ranks):
+    """``gather_whole`` of this rank's block of ``x`` at the split level of
+    an image of ``hw`` at output ``stride`` (``unit = (hw, stride, x,
+    cotangent, coarse)``), and the gradient of ``sum(y * (space index + 1) *
+    cotangent)``: ``(y, dx, gather_heights of the replicated coarse
+    tensor)``."""
+    (height, width), stride, x, cot, coarse = unit
+    split = spatial.HeightSplit.of(height, stride, ranks.n_space, ranks.space_index, width)
+    shard = spatial.Shard(ranks, split)
+    xb = ranks.local_rows(x)[..., split.rows(1), :].clone().requires_grad_(True)
+    y = spatial.gather_whole(xb, shard)
+    (y * ranks.local_rows(cot) * (ranks.space_index + 1)).sum().backward()
+    return y.detach(), xb.grad, spatial.gather_heights(ranks.local_rows(coarse), shard)
+
+
+def step_with_shares(inp, name, ranks):
+    """``torch_parallel_ranks.one_step`` on ``ranks``, with this rank's own
+    gradients before the grid's sum (in ``model.parameters()`` order)."""
+    shares = []
+    summed = ranks.sum_grads
+
+    def sum_grads(params):
+        params = list(params)
+        shares.extend(None if p.grad is None else p.grad.clone() for p in params)
+        summed(params)
+
+    ranks.sum_grads = sum_grads
+    try:
+        out = torch_parallel_ranks.one_step(inp[f"{name}_config"], inp[f"{name}_sd0"],
+                                            inp[f"{name}_batch"], ranks)
+    finally:
+        del ranks.sum_grads
+    return (*out, shares)
+
+
+def deep_units(rank, devices, store, inputs, out):
+    """The height splits past the coarsest level's rows, on the grids of
+    :func:`deep_grids`: each grid's forwards, steps and gather units, saved
+    to ``<out>.<rank>``."""
+    torch.set_num_threads(1)
+    grids = deep_grids(rank, devices, store)
+    inp = torch.load(inputs, weights_only=False)
+    res = {}
+    for s, ranks in grids.items():
+        if ranks is None:
+            continue
+        res[s] = {"grid": (ranks.data_index, ranks.space_index, ranks.n_data)}
+        for name, sd, image, stride, sc in inp["forwards"][s]:
+            model = UNet(num_classes=inp["forward_classes"], init_ch=8, output_stride=stride,
+                         is_stride_conv=sc, is_trans_conv=sc, elab_end_points=False)
+            model.load_state_dict(sd)
+            model.eval()
+            res[s][name] = spatial.spatial_forward(model, ranks)(ranks.local_rows(image))
+        for name in inp["steps"][s]:
+            res[s][name] = step_with_shares(inp, name, ranks)
+        if s in inp["gather"]:
+            res[s]["gather"] = gather_whole(inp["gather"][s], ranks)
+    torch.save(res, f"{out}.{rank}")
+    mesh.close_rank_group(grids[4])
