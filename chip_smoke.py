@@ -10,7 +10,9 @@ Phases, each of which exits non-zero on failure:
               plain PyTorch versions at ``FWD_CHECKS``: the train step's
               shapes (weak and strong as the halves of one 24 x C x 256 x
               256 tensor, C in 2..5, an all-ignored target, an all-zero
-              mask) on the forward's 16-byte route, an hw that is not a
+              mask; LVSC's and ACDC's 224 x 224 crops at C = 2 and 4, and
+              a data-2 rank's half batch at C = 2) on the forward's 16-byte
+              route, an hw that is not a
               multiple of 4 and planes off 16-byte alignment on its scalar
               route, one block on each route; three forward calls
               bit-equal, each on its planned route; ``warp_table`` against its plain version
@@ -25,7 +27,8 @@ Phases, each of which exits non-zero on failure:
               fused-ConvLayer kernels ``conv_stats``, ``bn_sums`` and
               ``conv_pad_out`` against their plain versions in bfloat16 and
               float32 at ``CONV_CHECK_SHAPES`` and at every fused layer of
-              the Experiment (N = 24) and upper-bound (N = 12) steps whose
+              the Experiment (N = 24; at CHAOS's 256 x 256 and at LVSC's
+              and ACDC's 224 x 224) and upper-bound (N = 12) steps whose
               ``conv_plan`` and ``bn_sums_plan`` no earlier shape had
               (``_conv_check_shapes``; in bfloat16 on the ``"wgmma"``
               route, covering every (BN, BK) tile pair that ``conv_plan``
@@ -191,6 +194,20 @@ Phases, each of which exits non-zero on failure:
               ``fused_loss_bwd`` and ``warp_cubic``; then
               ``scripts/quality_study_compare.py`` over the output
               (``phase_study_tiny``).
+16e. train (lvsc), train (acdc) -- the Experiment session at full width at
+              each cardiac dataset's shape (224x224 crops, 2 and 4 classes,
+              bf16) on a 48-slice pool written with that dataset's arguments,
+              each slice's extent within 16 px of the crop, on a canvas of
+              256: the augmentation's crop and embed inside the step, 2
+              warm-up and 3 timed eager steps with finite losses and one
+              launch each of ``fused_loss_fwd``, ``fused_loss_bwd`` and
+              ``warp_cubic`` a step, then one replayed update held against
+              the eager one (``_hold_replay``).  ``inference (lvsc)``: the
+              trained LVSC state's ``run_inference`` on the pool's test fold
+              on one card (``eval_data.npz`` of shape (slices, 2)) and on 2
+              space ranks (a card each where there are two, else gloo on
+              this card), held as ``inference (height-sharded)`` holds
+              CHAOS's.
 18. profile_dir -- a CLI training run with ``--profile_dir`` (3 epochs of
               2 steps, the graph path) writes one trace of epoch 1 with the
               card's kernels and logs it.  The profiler phases run last, so
@@ -284,6 +301,18 @@ DEEP_LOSS_BLOCKS = ((12, 5, 16, 48), (12, 5, 8, 48))
 DEEP_INFER = dict(input_size=(96, 96), output_stride=32)
 DEEP_TEST_SLICES = 96
 DEEP_TIMED = 5
+# train (lvsc) / train (acdc): the Experiment session at full width at each
+# cardiac dataset's shape (its 224x224 crop, classes and ignore index) on a
+# small pool written with that dataset's arguments, each slice's extent drawn
+# within CARDIAC_JITTER px of the crop per axis (the LVSC rehearsal's pool,
+# scripts/lvsc_rehearsal_torch.py), padded to a canvas of 256; inference
+# (lvsc) on that pool's test fold.
+CARDIAC = ("lvsc", "acdc")
+CARDIAC_SLICES = 48
+CARDIAC_JITTER = 16
+CARDIAC_CANVAS = 256
+CARDIAC_WARM, CARDIAC_TIMED = 2, 3
+CARDIAC_LOSS_BLOCKS = ((12, 2, 224, 224), (12, 4, 224, 224), (6, 2, 224, 224))
 
 
 def _fail(msg: str) -> None:
@@ -342,8 +371,9 @@ def _loss_inputs(c, case, dev, seed, n=12, h=256, w=256, offset=0):
 # rank's block of the height-sharded step (``fused_loss`` at shard heights:
 # 128 rows of 256 at space 2, and 6 rows of the batch at data 2 x space 2;
 # at space 3 the uneven split 88, 88, 80; past the coarse rows, 48x48 at
-# output stride 16 on space 4: 16, 16, 8 and 8 rows).  ``blocks`` None:
-# any.
+# output stride 16 on space 4: 16, 16, 8 and 8 rows); the cardiac steps'
+# 224x224 crops (LVSC's C = 2 and ACDC's C = 4, and a data-2 rank's 6 rows
+# of LVSC's batch).  ``blocks`` None: any.
 FWD_CHECKS = (
     ("random", 12, 2, 256, 256, 0, "vec4", None),
     ("random", 12, 3, 256, 256, 0, "vec4", None),
@@ -362,6 +392,9 @@ FWD_CHECKS = (
     ("random", 12, 5, 80, 256, 0, "vec4", None),
     ("random", 12, 5, 16, 48, 0, "vec4", None),
     ("random", 12, 5, 8, 48, 0, "vec4", None),
+    ("random", 12, 2, 224, 224, 0, "vec4", None),
+    ("random", 12, 4, 224, 224, 0, "vec4", None),
+    ("random", 6, 2, 224, 224, 0, "vec4", None),
 )
 
 
@@ -599,9 +632,16 @@ def phase_kernels(fl, wt, wc, warp, dev):
               f" ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
         rows.append(row)
     shard_shapes = time_shard_shapes(fl, wc, warp, dev, flush, err)
+    cardiac_shapes = _time_loss_blocks(fl, dev, flush, err, CARDIAC_LOSS_BLOCKS, 320)
+    for name, entries in cardiac_shapes.items():
+        for e in entries:
+            print(f"kernels: {name} at {e['shape']} (the cardiac steps) {e['ms']:.4f} ms, "
+                  f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms", flush=True)
     for row in rows:
         if row["name"] in shard_shapes:
             row["shard_shapes"] = shard_shapes[row["name"]]
+        if row["name"] in cardiac_shapes:
+            row["cardiac_shapes"] = cardiac_shapes[row["name"]]
     return rows
 
 
@@ -614,15 +654,13 @@ def _row_times(fn, plain, nbytes, ops, flush):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_shard_shapes(fl, wc, warp, dev, flush, err):
-    """Kernels 1, 2 and 6b at the shapes ``train (height-sharded, past the
-    coarse rows)`` gives them (each held against its plain version by
-    ``check_fused_loss`` and ``check_warp_cubic`` before): the fused loss at
-    each rank's block (``DEEP_LOSS_BLOCKS``), the direct warp on the global
-    batch (``DEEP_BATCH_SHAPE``).  Returns each kernel's entries."""
-    out = {"fused_loss_fwd": [], "fused_loss_bwd": [], "warp_cubic": []}
-    for i, (n, c, h, w) in enumerate(DEEP_LOSS_BLOCKS):
-        lw, ls, tgt, mask = _loss_inputs(c, "random", dev, 300 + i, n, h, w)
+def _time_loss_blocks(fl, dev, flush, err, blocks, seed):
+    """Kernels 1 and 2 at each ``(n, c, h, w)`` of ``blocks`` (held against
+    their plain versions by ``check_fused_loss`` before).  Returns each
+    kernel's entries."""
+    out = {"fused_loss_fwd": [], "fused_loss_bwd": []}
+    for i, (n, c, h, w) in enumerate(blocks):
+        lw, ls, tgt, mask = _loss_inputs(c, "random", dev, seed + i, n, h, w)
         res = fl.forward_plain(lw, ls, tgt, mask, c)
         scal = torch.tensor(LOSS_WEIGHTS, device=dev) / res[8:]
         npix = tgt.numel()
@@ -636,6 +674,16 @@ def time_shard_shapes(fl, wc, warp, dev, flush, err):
             entry = {"shape": [n, c, h, w], "max_abs_err": err[name], "library_ms": None,
                      **_row_times(fn, plain, nbytes, ops, flush)}
             out[name].append(entry)
+    return out
+
+
+def time_shard_shapes(fl, wc, warp, dev, flush, err):
+    """Kernels 1, 2 and 6b at the shapes ``train (height-sharded, past the
+    coarse rows)`` gives them (each held against its plain version by
+    ``check_fused_loss`` and ``check_warp_cubic`` before): the fused loss at
+    each rank's block (``DEEP_LOSS_BLOCKS``), the direct warp on the global
+    batch (``DEEP_BATCH_SHAPE``).  Returns each kernel's entries."""
+    out = {**_time_loss_blocks(fl, dev, flush, err, DEEP_LOSS_BLOCKS, 300), "warp_cubic": []}
     wplanes, sy, sx, bh, bw = _warp_smooth(DEEP_BATCH_SHAPE, dev, seed=310)
     lo, hi = (t.reshape(-1).contiguous() for t in warp.live_range(wplanes[0], bh, bw))
     out["warp_cubic"].append({
@@ -814,7 +862,7 @@ def check_conv_kernels(fc, dev):
                   f"{plan.grid_y}, {plan.rows_per_block} rows a block)", flush=True)
             del xp, w9, gzp, w9t, y, y_p, dxp, dxp_p
     step = {(k, p.bn, p.bk)
-            for config in (_experiment_config(), _upper_bound_config())
+            for config in _conv_configs()
             for s in conv_layer_shapes(config) if s[6]
             for k, p in _gemm_plans(fc, torch.bfloat16, *s[1:6]).items()
             if p.route == "wgmma" and (k == "conv_stats" or s[7])}
@@ -825,7 +873,8 @@ def check_conv_kernels(fc, dev):
     print(f"kernels: bn_sums two calls bit-equal, variants {sorted(bn_variants)}",
           flush=True)
     print(f"kernels: the check shapes cover all {len(step)} (kernel, BN, BK) wgmma tiles "
-          f"of the Experiment and upper-bound steps; {len(shapes) - len(CONV_CHECK_SHAPES)} "
+          f"of the Experiment (CHAOS, LVSC, ACDC) and upper-bound steps; "
+          f"{len(shapes) - len(CONV_CHECK_SHAPES)} "
           f"of the {len(shapes)} shapes are step layers whose plans no shape before had",
           flush=True)
     return err
@@ -833,29 +882,36 @@ def check_conv_kernels(fc, dev):
 
 def _conv_check_shapes(fc, sms):
     """``CONV_CHECK_SHAPES``, then every fused layer of the Experiment step
-    (N = 24) and of the upper-bound step (the bare model, N = 12) whose
-    bfloat16 plans differ from those of every shape before it: the GEMMs'
-    tiles and persistent grid (``conv_plan``) and ``bn_sums``' row
-    partition (``bn_sums_plan``) depend on N as well as on the channels.
+    (N = 24), of the upper-bound step (the bare model, N = 12) and of the
+    Experiment step at LVSC's and ACDC's 224x224 (widths 224, 112, 56, 28)
+    whose bfloat16 plans differ from those of every shape before it: the
+    GEMMs' tiles and persistent grid (``conv_plan``) and ``bn_sums``' row
+    partition (``bn_sums_plan``) depend on N and H x W as well as on the
+    channels.
     A check shape runs all three kernels; a layer whose input needs no
-    gradient runs no ``conv_pad_out``, so its plan is not compared."""
+    gradient runs no ``conv_pad_out``, so its plan is not compared.  A
+    ``"simple"`` plan names no channels (at 224 x 224 every fused layer
+    takes it, whatever its channels), so its layer's channels join the
+    comparison."""
     from scripts.reckon_fused_conv_bounds import conv_layer_shapes
 
     def plans(n, ci, co, h, w):
         gemm = _gemm_plans(fc, torch.bfloat16, n, ci, co, h, w)
+        simple = any(p.route == "simple" for p in gemm.values())
         return (gemm["conv_stats"], fc.bn_sums_plan(torch.bfloat16, n, h, w, co, sms),
-                gemm["conv_pad_out"])
+                gemm["conv_pad_out"], (ci, co) if simple else None)
 
     shapes = list(CONV_CHECK_SHAPES)
     checked = [plans(*s[1:]) for s in shapes]
-    for config in (_experiment_config(), _upper_bound_config()):
+    for config in _conv_configs():
         for name, n, ci, co, h, w, fused, needs_dx in conv_layer_shapes(config):
             want = plans(n, ci, co, h, w)
             if fused and not any(c[:2] == want[:2] and (c[2] == want[2] or not needs_dx)
-                                 for c in checked):
+                                 and c[3] == want[3] for c in checked):
                 label = name.replace("backbone.", "").replace(".conv_block.conv_layer",
                                                               " layer ")
-                shapes.append((f"{label}, {config.session}", n, ci, co, h, w))
+                where = "" if config.dataset == "chaos" else f" {config.dataset}"
+                shapes.append((f"{label}, {config.session}{where}", n, ci, co, h, w))
                 checked.append(want)
     return shapes
 
@@ -1225,11 +1281,23 @@ def phase_parity_fused(fc, dev, upper_bound=False):
           f"{runs[slope, 'fused'][0]['loss_total']:.6f}{extra}", flush=True)
 
 
-def _experiment_config():
-    from pacingpseudo_torch.config import ExperimentConfig
+def _experiment_config(dataset="chaos"):
+    """The Experiment session at ``dataset``'s shape, classes and ignore
+    index (CHAOS by default)."""
+    from pacingpseudo_torch.config import DATASETS, ExperimentConfig
+    spec = DATASETS[dataset]
     return ExperimentConfig(
+        dataset=dataset, num_classes=spec.num_classes, ignored_index=spec.ignored_index,
         session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
         do_aux_path=True, do_memory=True).validate()
+
+
+def _conv_configs():
+    """The sessions whose fused layers the ConvLayer kernels are held at: the
+    Experiment and upper-bound sessions at CHAOS's shape, and the Experiment
+    session at each cardiac dataset's."""
+    return (_experiment_config(), _upper_bound_config(),
+            *(_experiment_config(dataset) for dataset in CARDIAC))
 
 
 def _upper_bound_config():
@@ -1344,8 +1412,7 @@ def make_raw_pool(root, dev, num_slices=48):
     generator that walks the shuffled training loader epoch after epoch and
     hands each raw batch over on the device; close it to stop the loader's
     threads."""
-    from pacingpseudo_torch.data.npz_dataset import (BatchLoader, SliceDataset,
-                                                     raw_batch_to_device)
+    from pacingpseudo_torch.data.npz_dataset import BatchLoader, SliceDataset
     from pacingpseudo_torch.data.splits import read_fold_split
     from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
 
@@ -1370,16 +1437,19 @@ def make_raw_pool(root, dev, num_slices=48):
     print(f"augment: {len(train_set)} training and {len(val_set)} validation "
           f"slices, {len(loader)} batches of {config.batch_size} an epoch",
           flush=True)
+    return _device_batches(loader, dev), val_loader, config
 
-    def batches():
-        epoch = 0
-        while True:
-            loader.set_epoch(epoch)
-            for batch in loader:
-                yield raw_batch_to_device(batch, dev)
-            epoch += 1
 
-    return batches(), val_loader, config
+def _device_batches(loader, dev):
+    """The shuffled ``loader``'s raw batches on ``dev``, epoch after epoch."""
+    from pacingpseudo_torch.data.npz_dataset import raw_batch_to_device
+
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        for batch in loader:
+            yield raw_batch_to_device(batch, dev)
+        epoch += 1
 
 
 def phase_augment(wt, wc, dev, raw, config, flush):
@@ -3350,15 +3420,18 @@ SHARDED_SLICE_PIXELS_MAX = 2e-3
 
 
 def sharded_inference_diff(dev, data_root, model_kwargs, checkpoint, shards=2,
-                           batch_size=8, slices=TEST_FOLD_SLICES, name="inference (height-sharded)"):
+                           batch_size=8, slices=TEST_FOLD_SLICES, name="inference (height-sharded)",
+                           config=None):
     """``run_inference`` (bf16) on the test fold of ``make_test_fold``
-    under ``data_root`` from ``checkpoint`` on one card, then with
+    (or of ``config``'s dataset and fold; CHAOS's by default) under
+    ``data_root`` from ``checkpoint`` on one card, then with
     ``spatial_shards=shards`` on ``shards`` ranks (a card each where there
     are enough, else all on ``dev`` over gloo).  Returns both results and,
     for each slice, how many predicted pixels differ."""
     from pacingpseudo_torch.evals import infer
 
-    spec, fold = _experiment_config().spec, _experiment_config().fold
+    config = config or _experiment_config()
+    spec, fold = config.spec, config.fold
     runs = {}
     for tag, devices, n in (("one card", dev, 1),
                             (f"space {shards}", _rank_devices(dev, shards), shards)):
@@ -3398,15 +3471,16 @@ def phase_inference_sharded(dev, data_root, config, checkpoint, smi, shards=2,
                   output_stride=config.output_stride, is_stride_conv=config.is_stride_conv,
                   is_trans_conv=config.is_trans_conv)
     one, sp, differ = sharded_inference_diff(dev, data_root, kwargs, checkpoint, shards,
-                                             slices=slices, name=name)
-    sizes = [np.load(os.path.join(data_root, "chaos", "slices", f"{uid}.npz"))["img"].shape
-             for uid in one["uids"][:1]]
-    plane = sizes[0][0] * sizes[0][1]
+                                             slices=slices, name=name, config=config)
+    ds_dir = "chaos" if config.dataset.startswith("chaos") else config.dataset
+    sizes = [np.load(os.path.join(data_root, ds_dir, "slices", f"{uid}.npz"))["img"].shape
+             for uid in one["uids"]]
+    planes = [h * w for h, w in sizes]
     total, worst = sum(differ), max(differ)
-    _check(total <= SHARDED_PIXELS_MAX * slices * plane
-           and worst <= SHARDED_SLICE_PIXELS_MAX * plane,
+    _check(total <= SHARDED_PIXELS_MAX * sum(planes)
+           and all(n <= SHARDED_SLICE_PIXELS_MAX * p for n, p in zip(differ, planes)),
            f"{name}: {total} predicted pixels of "
-           f"{slices * plane} differ from one card's, {worst} in one slice "
+           f"{sum(planes)} differ from one card's, {worst} in one slice "
            f"(limits {SHARDED_PIXELS_MAX:g} and {SHARDED_SLICE_PIXELS_MAX:g} of them)")
     for i, (uid, n) in enumerate(zip(one["uids"], differ)):
         if n == 0:
@@ -3414,10 +3488,10 @@ def phase_inference_sharded(dev, data_root, config, checkpoint, smi, shards=2,
                 _check(np.array_equal(sp[key][i], one[key][i], equal_nan=True),
                        f"{name}: {uid}'s {key} {sp[key][i]} on {shards} ranks, "
                        f"{one[key][i]} on one card, with the same prediction")
-    print(f"{name}: {smi}: {slices} test slices of {sizes[0]}, bf16, output stride "
-          f"{config.output_stride}, spatial_shards {shards} on "
+    print(f"{name}: {smi}: {slices} test slices of {min(sizes)}-{max(sizes)}, bf16, output "
+          f"stride {config.output_stride}, spatial_shards {shards} on "
           f"{', '.join(map(str, _rank_devices(dev, shards)))}: {total} "
-          f"predicted pixels of {slices * plane} differ from the single-card "
+          f"predicted pixels of {sum(planes)} differ from the single-card "
           f"run's (limit {SHARDED_PIXELS_MAX:g} of them), in {sum(n > 0 for n in differ)} "
           f"slices, at most {worst} in one (limit {SHARDED_SLICE_PIXELS_MAX:g} of a slice's); "
           f"every other slice's Dice and HD95 equal; the whole "
@@ -3552,6 +3626,107 @@ def phase_study_tiny(root, counters, smi):
           f"{[(r['arm'], round(r['best_val_dice'], 4), round(r['test_dice_slice'], 4), round(r['test_hd95_slice'], 2)) for r in rows]}",
           flush=True)
     return launches
+
+
+def make_cardiac_pool(root, dataset, dev, num_slices=CARDIAC_SLICES):
+    """Write a seeded pool of ``num_slices`` "easy" phantoms with
+    ``dataset``'s arguments (its crop, classes and ignore index; extents
+    within ``CARDIAC_JITTER`` px of the crop) under ``root`` and open it as
+    the loop does.  Returns ``(config, raw_batches)``: the Experiment
+    session at that shape, and a generator that walks the shuffled training
+    loader and hands each raw batch over on the device (close it to stop
+    the loader's threads)."""
+    from pacingpseudo_torch.data.npz_dataset import BatchLoader, SliceDataset
+    from pacingpseudo_torch.data.splits import read_fold_split
+    from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
+
+    config = _experiment_config(dataset)
+    spec = config.spec
+    t0 = time.perf_counter()
+    write_synthetic_dataset(root, dataset, num_slices, spec.input_size, spec.num_classes,
+                            spec.ignored_index, modality=config.modality, seed=config.seed,
+                            size_jitter=CARDIAC_JITTER, difficulty="easy")
+    seconds = time.perf_counter() - t0
+    train_files, _ = read_fold_split(root, dataset, config.fold)
+    train_set = SliceDataset(train_files, spec.num_classes, spec.ignored_index)
+    loader = BatchLoader(train_set, config.batch_size, shuffle=True, drop_last=True,
+                         seed=config.seed, num_threads=4)
+    extents = {tuple(train_set.load(i)["size"]) for i in range(len(train_set))}
+    _check(train_set.canvas_size == CARDIAC_CANVAS and len(extents) > 1
+           and all(abs(e - c) <= CARDIAC_JITTER for ext in extents
+                   for e, c in zip(ext, spec.input_size)),
+           f"train ({dataset}): canvas {train_set.canvas_size}, extents {sorted(extents)}")
+    print(f"train ({dataset}): wrote {num_slices} slices of extents "
+          f"{min(e[0] for e in extents)}-{max(e[0] for e in extents)} x "
+          f"{min(e[1] for e in extents)}-{max(e[1] for e in extents)} in {seconds:.2f} s; "
+          f"{len(train_set)} training slices on a canvas of {train_set.canvas_size}, "
+          f"{len(loader)} batches an epoch", flush=True)
+    return config, _device_batches(loader, dev)
+
+
+def phase_cardiac_train(dataset, counters, expected, dev, root, smi):
+    """``train (<dataset>)``: the Experiment session at full width on
+    ``make_cardiac_pool``'s pool, the loop's augmentation inside the step
+    (the crop and embed of 224x224 from each slice's extent on the 256
+    canvas): ``CARDIAC_WARM`` + ``CARDIAC_TIMED`` eager steps through
+    ``phase_train`` (finite losses, ``expected`` launches a step: kernels 1,
+    2 and 6b once each), then one replayed update held against the eager
+    one (``_hold_replay``, as ``train (raw, graph)`` holds CHAOS's).
+    Returns ``(state, launches, median step ms)``."""
+    from pacingpseudo_torch.aug.engine import make_train_augment_fn
+    from pacingpseudo_torch.train import loop
+
+    name = f"train ({dataset})"
+    config, raw_batches = make_cardiac_pool(os.path.join(root, dataset), dataset, dev)
+    augment_fn = make_train_augment_fn(*loop._augment_params(config), True)
+    raw = next(raw_batches)
+    batch = augment_fn(raw, torch.Generator(device=dev).manual_seed(config.seed))
+    crop = (config.batch_size, 1, *config.spec.input_size)
+    _check(tuple(batch["image"].shape) == crop and tuple(batch["label"].shape)
+           == (config.batch_size, config.num_classes, *config.spec.input_size),
+           f"{name}: augmented image {tuple(batch['image'].shape)}, label "
+           f"{tuple(batch['label'].shape)}, want {crop} and C = {config.num_classes}")
+    del batch
+    _release_memory()
+    state, launches, ms = phase_train(
+        name, counters, expected, dev, lambda: next(raw_batches), augment_fn=augment_fn,
+        generator=torch.Generator(device=dev).manual_seed(config.seed),
+        steps_warm=CARDIAC_WARM, steps_timed=CARDIAC_TIMED, config=config)
+    raws = [next(raw_batches), next(raw_batches)]
+    raw_batches.close()
+    _release_memory()
+    print(f"{name}: {_hold_replay(name, config, augment_fn, raws, dev)}", flush=True)
+    print(f"{name}: {smi}: median eager step {ms:.3f} ms "
+          f"({config.batch_size * 1e3 / ms:.1f} slices/s), C = {config.num_classes}, "
+          f"launches {({k: v for k, v in launches.items() if v})} over "
+          f"{CARDIAC_WARM + CARDIAC_TIMED} steps", flush=True)
+    return state, launches, ms
+
+
+def phase_inference_lvsc(dev, counters, root, state, smi):
+    """``inference (lvsc)``: ``run_inference`` from ``state`` (``train
+    (lvsc)``'s, saved as a checkpoint) on the test fold of its jittered pool,
+    on one card and on 2 space ranks (a card each where there are two, else
+    both on this card over gloo): ``eval_data.npz`` of shape (slices, 2),
+    no kernel launched on one card, and the ranks held against one card by
+    :func:`phase_inference_sharded`."""
+    from pacingpseudo_torch.data.splits import read_test_split
+    from pacingpseudo_torch.train import checkpoint as ckpt
+
+    config = _experiment_config("lvsc")
+    data_root = os.path.join(root, "lvsc")
+    path = os.path.join(root, "lvsc_ckp")
+    ckpt.save_checkpoint(path, state)
+    slices = len(read_test_split(data_root, "lvsc", config.fold))
+    _reset_launch_counts(counters)
+    phase_inference_sharded(dev, data_root, config, path, smi, slices=slices,
+                            name="inference (lvsc)")
+    launches = _launch_counts(counters)
+    saved = np.load(os.path.join(data_root, "inference_sharded", "one_card", "eval_data.npz"))
+    _check(saved["dicearr"].shape == saved["hd95arr"].shape == (slices, config.num_classes)
+           and not any(launches.values()),
+           f"inference (lvsc): eval_data.npz {saved['dicearr'].shape}, kernels launched "
+           f"{launches}")
 
 
 def phase_profile_dir(data_root, smi):
@@ -3738,6 +3913,15 @@ def main() -> None:
         rg_launches = phase_ranks_graph(dev, loop_root, rg_raws, smi, one_card)
         del dp_raws, sp_raws, deep_raws, rg_raws
         study_launches = phase_study_tiny(root, counters, smi)
+        cardiac_launches = {}
+        for dataset in CARDIAC:
+            _release_memory()
+            state, cardiac_launches[f"train ({dataset})"], _ = phase_cardiac_train(
+                dataset, counters, raw_kernels, dev, root, smi)
+            if dataset == "lvsc":
+                _release_memory()
+                phase_inference_lvsc(dev, counters, root, state, smi)
+            del state
 
         # Profiler sessions last: none is followed by a timed phase.
         check_bn_sums_launches(fc, dev)
@@ -3751,7 +3935,7 @@ def main() -> None:
              **graph_paths, "loop (resident, graph)": loop_launches,
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
              **sp_launches, **deep_launches, **rg_launches,
-             "study (tiny), Experiment arm": study_launches}
+             "study (tiny), Experiment arm": study_launches, **cardiac_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

@@ -40,6 +40,7 @@ SHAPES = [
     (6, 5, 128, 256, True, 132),      # data 2 x space 2
     (12, 4, 224, 224, True, 132),     # ACDC
     (12, 2, 224, 224, True, 132),     # LVSC
+    (6, 2, 224, 224, True, 132),      # a rank's rows of LVSC's step on 2 ranks
     (12, 5, 256, 256, True, 114),     # a card with fewer SMs
     (12, 5, 256, 256, False, 132),    # planes off 16-byte alignment
     (12, 5, 255, 255, True, 132),     # hw % 4 != 0

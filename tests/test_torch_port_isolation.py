@@ -20,7 +20,9 @@ PORT = ROOT / "pacingpseudo_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pacingpseudo_tpu")
 STUDY_SCRIPTS = (ROOT / "scripts" / "quality_study_torch.py",
                  ROOT / "scripts" / "quality_study_compare.py",
-                 ROOT / "scripts" / "study_r3_pool_torch.py")
+                 ROOT / "scripts" / "study_r3_pool_torch.py",
+                 ROOT / "scripts" / "lvsc_rehearsal_torch.py",
+                 ROOT / "scripts" / "lvsc_compare.py")
 
 
 def _port_modules():
