@@ -194,7 +194,18 @@ Phases, each of which exits non-zero on failure:
               ``fused_loss_bwd`` and ``warp_cubic``; then
               ``scripts/quality_study_compare.py`` over the output
               (``phase_study_tiny``).
-16e. train (lvsc), train (acdc) -- the Experiment session at full width at
+16e. study (tiny, dilated) -- the regime of ``study_r3_dilated``:
+              ``scripts/study_r3_pool_torch.py --scribble_style dilated``
+              writes a 48-slice pool (its marker must name the style), the
+              runner trains Control and Experiment with
+              ``--ref_quirk_bn_eval_after_first_epoch`` on the 200-epoch
+              schedule, stopped after epoch 1 (each log must say that the
+              frozen-BN step took over at epoch 1), evaluates both, and
+              ``scripts/quality_study_compare.py --protocol dilated`` holds
+              the output against ``study_r3_dilated/``; the Experiment arm
+              launches ``fused_loss_fwd``, ``fused_loss_bwd`` and
+              ``warp_cubic`` (``phase_study_tiny_dilated``).
+16f. train (lvsc), train (acdc) -- the Experiment session at full width at
               each cardiac dataset's shape (224x224 crops, 2 and 4 classes,
               bf16) on a 48-slice pool written with that dataset's arguments,
               each slice's extent within 16 px of the crop, on a canvas of
@@ -3628,6 +3639,82 @@ def phase_study_tiny(root, counters, smi):
     return launches
 
 
+def phase_study_tiny_dilated(root, counters, smi):
+    """The dilated, frozen-BN study at ``STUDY_SLICES`` slices and full
+    width: ``scripts/study_r3_pool_torch.py --scribble_style dilated``, then
+    ``scripts/quality_study_torch.py --r3_split --scribble_style dilated`` on
+    that pool, both arms under the BatchNorm quirk on the 200-epoch schedule
+    of ``study_r3_dilated``, stopped after epoch ``STUDY_EPOCHS - 1``, at lr
+    0.003 as ``phase_study_tiny``; the Experiment arm alone between the
+    counts' reset and read.  Then ``scripts/quality_study_compare.py
+    --protocol dilated`` against ``study_r3_dilated``: its identity checks
+    pass (the quirk and 200 epochs in every arm's config, the pool's fold 0
+    in every log header) and its JSON parses, with a verdict for each
+    rule."""
+    runner, compare = _script("quality_study_torch"), _script("quality_study_compare")
+    pool = _script("study_r3_pool_torch")
+    study = os.path.join(root, "study_dilated")
+    data = os.path.join(study, "data")
+    _release_memory()
+    t0 = time.perf_counter()
+    pool.main(["--data_root", data, "--slices", str(STUDY_SLICES), "--scribble_style", "dilated"])
+    t1 = time.perf_counter()
+    mark = pool.read_marker(data)
+    _check(mark is not None and mark["scribble_style"] == "dilated"
+           and mark["slices"] == STUDY_SLICES,
+           f"study (tiny, dilated): the pool's marker {mark}")
+    args = ["--root", study, "--r3_split", "--scribble_style", "dilated", "--tag",
+            "study_torch_dilated", "--epochs", "200", "--slices", str(STUDY_SLICES),
+            "--stop_after_epoch", str(STUDY_EPOCHS - 1)]
+    extra = ["--", "--ref_quirk_bn_eval_after_first_epoch", "--lr", "0.003"]
+    runner.main(args + ["--arms", "Control"] + extra)
+    _reset_launch_counts(counters)
+    t2 = time.perf_counter()
+    rows = runner.main(args + ["--arms", "Experiment"] + extra)
+    t3 = time.perf_counter()
+    launches = _launch_counts(counters)
+    _check(all(launches[k] >= 1 for k in ("fused_loss_fwd", "fused_loss_bwd", "warp_cubic"))
+           and launches["fused_loss_fwd"] == launches["fused_loss_bwd"],
+           f"study (tiny, dilated): the Experiment arm's launches {launches}")
+    _check([r["arm"] for r in rows] == ["Control", "Experiment"],
+           f"study (tiny, dilated): summary rows {rows}")
+    epochs = {}
+    for row in rows:
+        arm = row["arm"]
+        run_dir = os.path.join(study, arm, "run-fold0")
+        log = open(os.path.join(run_dir, "log.txt")).read()
+        config = json.load(open(os.path.join(run_dir, "config.json")))
+        valdice = np.load(os.path.join(run_dir, "valdice.npz"))["valdice"]
+        _check(config["ref_quirk_bn_eval_after_first_epoch"] is True and config["epoch"] == 200
+               and valdice.shape == (200,) and np.isfinite(valdice).all()
+               and all(f"val: {e:03d}," in log for e in range(STUDY_EPOCHS))
+               and f"val: {STUDY_EPOCHS:03d}," not in log,
+               f"study (tiny, dilated): {arm} ran {valdice[:STUDY_EPOCHS + 1]}")
+        frozen = log.split("val: 000,")[1].split("epoch: 001,")[0]
+        _check("epoch 001 on: frozen-BN step" in frozen,
+               f"study (tiny, dilated): {arm}'s epoch 1 did not take the frozen-BN step")
+        _check(all(row.get(k) is not None and math.isfinite(row[k])
+                   for k in ("test_dice_slice", "test_dice_patient", "test_hd95_slice")),
+               f"study (tiny, dilated): {arm}'s summary row {row}")
+        epochs[arm] = [float(x) for x in re.findall(r"([0-9.]+) s/epoch", log)]
+    out = compare.main(["--protocol", "dilated", "--jax",
+                        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     "study_r3_dilated"),
+                        "--port", study, "--slices", str(STUDY_SLICES)])
+    rules = json.load(open(os.path.join(study, "compare.json")))["rules"]
+    _check(out["protocol"] == "dilated" and sorted(rules) == ["a", "b", "c", "d"]
+           and all(r["verdict"] in ("pass", "fail", "not evaluated") for r in rules.values()),
+           f"study (tiny, dilated): compare.json's rules {rules}")
+    print(f"study (tiny, dilated): {smi}: pool of {STUDY_SLICES} dilated slices {t1 - t0:.1f} s; "
+          f"{STUDY_EPOCHS} epochs an arm under the BN quirk; Control {t2 - t1:.1f} s, "
+          f"Experiment {t3 - t2:.1f} s (training, inference); s/epoch {epochs}; Experiment arm "
+          f"launches { {k: v for k, v in launches.items() if v} }; rules "
+          f"{ {k: r['verdict'] for k, r in rules.items()} }; summary "
+          f"{[(r['arm'], round(r['best_val_dice'], 4), round(r['test_dice_slice'], 4), round(r['test_hd95_slice'], 2)) for r in rows]}",
+          flush=True)
+    return launches
+
+
 def make_cardiac_pool(root, dataset, dev, num_slices=CARDIAC_SLICES):
     """Write a seeded pool of ``num_slices`` "easy" phantoms with
     ``dataset``'s arguments (its crop, classes and ignore index; extents
@@ -3913,6 +4000,7 @@ def main() -> None:
         rg_launches = phase_ranks_graph(dev, loop_root, rg_raws, smi, one_card)
         del dp_raws, sp_raws, deep_raws, rg_raws
         study_launches = phase_study_tiny(root, counters, smi)
+        dilated_launches = phase_study_tiny_dilated(root, counters, smi)
         cardiac_launches = {}
         for dataset in CARDIAC:
             _release_memory()
@@ -3935,7 +4023,8 @@ def main() -> None:
              **graph_paths, "loop (resident, graph)": loop_launches,
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
              **sp_launches, **deep_launches, **rg_launches,
-             "study (tiny), Experiment arm": study_launches, **cardiac_launches}
+             "study (tiny), Experiment arm": study_launches,
+             "study (tiny, dilated), Experiment arm": dilated_launches, **cardiac_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

@@ -58,6 +58,13 @@ third run, from JAX's weights nudged by ``NUDGE``, is the yardstick:
 A Dice is a count of argmax pixels: at the study's learning rate (1e-4)
 two epochs leave the model near its initialisation, where many pixels lie
 near a tie; the flipped share bounds that directly.
+
+``test_frozen_bn_loop_matches_jax`` holds the same checks, with the same
+bounds, on both loops under ``ref_quirk_bn_eval_after_first_epoch`` (the
+regime of ``study_r3_dilated``) for three epochs, so epochs 1-2 take the
+frozen-BN step (BatchNorm on its running statistics, which then stay as
+epoch 0 left them, on both sides); the port's log says the frozen step took
+over at epoch 1.
 """
 import importlib.util
 import json
@@ -181,7 +188,22 @@ def _port_aug(base, strong, do_strong):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both loops' run dirs, JAX's saved states, the port's final state."""
-    root = tmp_path_factory.mktemp("control_loop")
+    return _run_loops(tmp_path_factory.mktemp("control_loop"), CONFIG)
+
+
+QUIRK_EPOCHS = 3
+QUIRK = {**CONFIG, "epoch": QUIRK_EPOCHS, "ref_quirk_bn_eval_after_first_epoch": True}
+
+
+@pytest.fixture(scope="module")
+def quirk_runs(tmp_path_factory):
+    """The same under the BatchNorm quirk, three epochs."""
+    return _run_loops(tmp_path_factory.mktemp("control_loop_quirk"), QUIRK)
+
+
+def _run_loops(root, config):
+    """Run JAX's loop, the port's and the port's from nudged weights on one
+    pool under ``config``; their run dirs and saved states."""
     data = str(root / "data")
     _pool_script().write_pool(data, SLICES, seed=1, size=(S, S))
     for side in ("jax", "port", "nudged"):
@@ -210,7 +232,7 @@ def runs(tmp_path_factory):
         mp.setattr(jax_loop, "create_train_state", jax_state)
         mp.setattr(jax_ckpt, "save_checkpoint",
                    lambda path, state: saved.__setitem__(pathlib.Path(path).name, state))
-        jax_run = jax_loop.train_driver(JaxConfig(**CONFIG).validate(), data,
+        jax_run = jax_loop.train_driver(JaxConfig(**config).validate(), data,
                                         run_dir=str(root / "jax"))
 
         mp.setattr(loop, "make_train_augment_fn", _port_aug)
@@ -242,11 +264,11 @@ def runs(tmp_path_factory):
 
             mp.setattr(ckpt, "save_checkpoint", port_save)
             nudge.update({"seed": 1} if side == "nudged" else {})
-            loop._train_driver(ExperimentConfig(**CONFIG).validate(), data, str(root / side),
+            loop._train_driver(ExperimentConfig(**config).validate(), data, str(root / side),
                                device="cpu")
     finally:
         mp.undo()
-    return {"data": data, "jax": jax_run, "port": str(root / "port"),
+    return {"data": data, "jax": jax_run, "port": str(root / "port"), "epochs": config["epoch"],
             "nudged": str(root / "nudged"), "jax_saved": saved,
             "port_saved": port_saved["port"], "nudged_saved": port_saved["nudged"]}
 
@@ -272,13 +294,21 @@ def test_both_loops_ran_two_epochs_on_the_r3_split(runs):
 
 
 def test_valdice_per_epoch_matches_jax(runs):
+    _check_valdice(runs)
+
+
+def _check_valdice(runs):
     want = np.load(pathlib.Path(runs["jax"]) / "valdice.npz")["valdice"]
     got = np.load(pathlib.Path(runs["port"]) / "valdice.npz")["valdice"]
-    assert got.shape == want.shape == (EPOCHS,) and np.all(want > 0)
+    assert got.shape == want.shape == (runs["epochs"],) and np.all(want > 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=DICE_ATOL)
 
 
 def test_validation_line_per_class_matches_jax(runs):
+    _check_validation_lines(runs)
+
+
+def _check_validation_lines(runs):
     lines = {side: _val_lines(runs[side]) for side in ("jax", "port", "nudged")}
     for (loss_j, cls_j, all_j), (loss_p, cls_p, all_p), (loss_n, _, _) in zip(
             lines["jax"], lines["port"], lines["nudged"]):
@@ -300,6 +330,10 @@ def _stats_error(got, want):
 
 
 def test_batch_norm_statistics_after_epoch_0_match_jax(runs):
+    _check_stats(runs)
+
+
+def _check_stats(runs):
     j = runs["jax_saved"]["ckp_0"]
     want = from_jax_variables(jax.tree.map(np.asarray, j.params),
                               jax.tree.map(np.asarray, j.batch_stats))
@@ -314,10 +348,15 @@ def test_final_models_flip_few_validation_pixels(runs):
     (the port's eval forward, each with its own weights): the share of
     pixels where JAX's and the port's differ, against the share where the
     port's and the nudged run's differ."""
+    _check_flips(runs)
+
+
+def _check_flips(runs):
     from pacingpseudo_torch.data.npz_dataset import SliceDataset
     from pacingpseudo_torch.data.splits import read_fold_split
 
-    j = runs["jax_saved"][f"ckp_{EPOCHS - 1}"]
+    last = runs["epochs"] - 1
+    j = runs["jax_saved"][f"ckp_{last}"]
     _, val = read_fold_split(runs["data"], "chaost1", 0, "t1")
     ds = SliceDataset(val, 5, 5)
     raw = [ds.load(i) for i in range(len(ds))]
@@ -326,8 +365,8 @@ def test_final_models_flip_few_validation_pixels(runs):
     pred = {}
     for side, sd in (("jax", from_jax_variables(jax.tree.map(np.asarray, j.params),
                                                 jax.tree.map(np.asarray, j.batch_stats))),
-                     ("port", runs["port_saved"][f"ckp_{EPOCHS - 1}"]),
-                     ("nudged", runs["nudged_saved"][f"ckp_{EPOCHS - 1}"])):
+                     ("port", runs["port_saved"][f"ckp_{last}"]),
+                     ("nudged", runs["nudged_saved"][f"ckp_{last}"])):
         model = UNet(num_classes=5, init_ch=8, output_stride=8)
         model.load_state_dict({k[len("backbone."):]: torch.as_tensor(np.asarray(v))
                                for k, v in sd.items() if k.startswith("backbone.")})
@@ -341,3 +380,28 @@ def test_final_models_flip_few_validation_pixels(runs):
     got, spread = share("jax", "port"), share("nudged", "port")
     print(json.dumps({"flipped_share": got, "flipped_share_nudged": spread}))
     assert got <= FLIP_SPREADS * spread + FLIP_FLOOR, (got, spread)
+
+
+def _check_frozen(runs):
+    """Both loops validated every epoch; the port's log says the frozen-BN
+    step took over at epoch 1 (JAX's loop logs nothing there); the running
+    statistics after the last epoch are epoch 0's, bit for bit, on both
+    sides."""
+    for side in ("jax", "port"):
+        assert len(_val_lines(runs[side])) == QUIRK_EPOCHS, side
+    log = (pathlib.Path(runs["port"]) / "log.txt").read_text()
+    assert "epoch 001 on: frozen-BN step" in log.split("epoch: 001")[0].split("val: 000")[1]
+    last = f"ckp_{QUIRK_EPOCHS - 1}"
+    for key, value in runs["port_saved"]["ckp_0"].items():
+        if key.endswith(("running_mean", "running_var")):
+            assert torch.equal(runs["port_saved"][last][key], value), key
+    for a, b in zip(jax.tree.leaves(runs["jax_saved"]["ckp_0"].batch_stats),
+                    jax.tree.leaves(runs["jax_saved"][last].batch_stats)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("check", [_check_frozen, _check_valdice, _check_validation_lines,
+                                   _check_stats, _check_flips],
+                         ids=["frozen", "valdice", "val_line", "bn_stats", "flips"])
+def test_frozen_bn_loop_matches_jax(quirk_runs, check):
+    check(quirk_runs)
