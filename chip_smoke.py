@@ -144,6 +144,10 @@ Phases, each of which exits non-zero on failure:
               folds 0 and 1 of that pool, the Upperbound session at full
               width, 8 steps and inference each; the fold JSONs, the
               summary, the table, and a second call that reads the cache.
+              Then the Experiment session (the four pacing flags) the same
+              way on a jagged pool of 5 patients, the child printing its
+              launch counts: the fold JSONs' per-patient keys, and kernels
+              1, 2 and 6b launched in the child.
 16a. loader (native) -- the C++ npz loader (``data/native``, built by
               g++ at first use) on that pool: ``BatchLoader.route`` must be
               ``"native"``; an epoch's batches byte-equal to the numpy
@@ -154,7 +158,10 @@ Phases, each of which exits non-zero on failure:
               ``cuda:0`` over gloo with one card.  Each rank's augmented
               rows equal the single-card batch bit for bit; one update held
               against the single-card eager update, in float32 beside two
-              updates from weights nudged by 1e-7 and in bf16 beside a
+              updates from weights nudged by 1e-7 (these and the ranks'
+              update take the eager update's LeakyReLU branches, so that a
+              flip, counted and held on its own, moves no leaf) and in bf16
+              beside a
               second bf16 update and the float32 one (the ranks' forward
               runs at half the batch, where cuDNN rounds otherwise; flips
               counted); parameters, BN statistics and bank equal on the
@@ -1147,14 +1154,29 @@ def _grads_close_l2(tag, got, want, rtol):
                f"{float(w.norm())}")
 
 
-def _record_signs(model, signs):
+def _record_signs(model, signs, branches=None):
     """Forward hooks that append to ``signs`` where each ConvLayer's output
-    is positive: the sign of its LeakyReLU's pre-activation.  Returns the
-    hooks' handles."""
-    from pacingpseudo_torch.models.unet import ConvLayer
+    is positive: the sign of its LeakyReLU's pre-activation.  With
+    ``branches`` (a bool tensor for each ConvLayer call, in call order, as
+    ``signs`` records them) each output takes the branch ``branches`` names
+    instead: where the two disagree the output is scaled by the other
+    branch's slope over its own, so that the gradient takes that slope too
+    (the value moves by no more than the pre-activation, which is about its
+    rounding there).  Returns the hooks' handles."""
+    from pacingpseudo_torch.models.unet import NEGATIVE_SLOPE, ConvLayer
 
     def hook(module, inputs, out):
-        signs.append(out.detach() > 0)
+        pos = out.detach() > 0
+        signs.append(pos)
+        if branches is None:
+            return None
+        want = branches[len(signs) - 1]
+        _check(want.shape == pos.shape, f"branches {tuple(want.shape)} for a ConvLayer "
+               f"output {tuple(pos.shape)}")
+        factor = torch.ones_like(out)
+        factor[pos & ~want] = NEGATIVE_SLOPE
+        factor[~pos & want] = 1 / NEGATIVE_SLOPE
+        return out * factor
 
     return [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, ConvLayer)]
 
@@ -2428,14 +2450,19 @@ def phase_graph_train(dev, counters, raw_batches, augment_fn, ub_augment_fn, fc,
     return paths, one_card
 
 
-def make_loop_pool(root, seed, patients=LOOP_PATIENTS, per_patient=TEST_PATIENT_SLICES):
+def make_loop_pool(root, seed, patients=LOOP_PATIENTS, per_patient=TEST_PATIENT_SLICES,
+                   difficulty="easy", name="loop (resident, graph)", threaded=False):
     """A seeded synthetic CHAOS pool of ``patients x per_patient`` 256x256
-    slices for the graph loop and the sweep: the phantoms of
+    slices for the graph loop and the sweep: the ``difficulty`` phantoms of
     ``write_synthetic_dataset`` with grid scribbles (the label on every 16th
     row and column, ignore elsewhere: the skeleton scribbles take ~0.15 s a
     slice of host time) and its patient-level five-fold split (the test set
     of fold k: patients k, k + 5, ...).  Fold 1 trains on 10 patients (240
-    slices: 20 steps of 12) and validates on 3."""
+    slices: 20 steps of 12) and validates on 3.  The phantoms come from one
+    stream in order, or, ``threaded``, from a stream a patient
+    (``RandomState([seed, patient])``), each patient written in a thread of
+    its own (numpy's array work releases the GIL: the jagged phantoms take
+    ~0.09 s a slice)."""
     from pacingpseudo_torch.data.synthetic import make_phantom
 
     spec = _experiment_config().spec
@@ -2444,25 +2471,35 @@ def make_loop_pool(root, seed, patients=LOOP_PATIENTS, per_patient=TEST_PATIENT_
     split = os.path.join(root, "chaos", "train_test_split", "five_fold_split", "t1")
     os.makedirs(slices)
     os.makedirs(split)
-    rng = np.random.RandomState(seed)
     grid = np.zeros(spec.input_size, bool)
     grid[::16] = True
     grid[:, ::16] = True
-    names = {p: [] for p in range(patients)}
-    for i in range(patients * per_patient):
-        img, lab = make_phantom(rng, spec.input_size, spec.num_classes, "easy")
-        scb = np.where(grid, lab, spec.ignored_index).astype(np.float32)
-        uid = f"pat{i // per_patient:03d}_slice{i % per_patient:03d}"
-        np.savez(os.path.join(slices, uid + ".npz"), uid=uid, img=img,
-                 lab=lab.astype(np.float32), scb=scb)
-        names[i // per_patient].append(f"slices/{uid}.npz")
+    names = {p: [f"slices/pat{p:03d}_slice{j:03d}.npz" for j in range(per_patient)]
+             for p in range(patients)}
+
+    def write_patient(p, rng):
+        for rel in names[p]:
+            img, lab = make_phantom(rng, spec.input_size, spec.num_classes, difficulty)
+            scb = np.where(grid, lab, spec.ignored_index).astype(np.float32)
+            uid = os.path.basename(rel)[:-len(".npz")]
+            np.savez(os.path.join(slices, uid + ".npz"), uid=uid, img=img,
+                     lab=lab.astype(np.float32), scb=scb)
+
+    if threaded:
+        with concurrent.futures.ThreadPoolExecutor(patients) as pool:
+            list(pool.map(lambda p: write_patient(p, np.random.RandomState([seed, p])),
+                          range(patients)))
+    else:
+        rng = np.random.RandomState(seed)
+        for p in range(patients):
+            write_patient(p, rng)
     for fold in range(5):
         test = set(range(fold, patients, 5))
         for part, keep in (("train", False), ("test", True)):
             with open(os.path.join(split, f"{part}_fold{fold}.txt"), "w") as f:
                 f.write("\n".join(n for p in range(patients) if (p in test) == keep
                                   for n in names[p]) + "\n")
-    print(f"loop (resident, graph): wrote {patients * per_patient} synthetic "
+    print(f"{name}: wrote {patients * per_patient} synthetic {difficulty} "
           f"{spec.input_size} slices of {patients} patients in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2612,15 +2649,33 @@ def phase_loop_graph(dev, counters, data_root, smi):
     return launches[0]
 
 
-def _run_cli(module, args, timeout=600):
+# ``python -m <module>`` under runpy, then the child's kernel launch counts
+# (each wrapper's LAUNCHES) on a last line of their own.
+LAUNCHES_TAG = "child launches: "
+_COUNTED_CHILD = (
+    "import json, runpy, sys\n"
+    "from pacingpseudo_torch.ops import fused_convbn, fused_loss, warp_cubic, warp_table\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    f"print({LAUNCHES_TAG!r} + json.dumps({{k: v for m in (fused_loss, warp_table, "
+    "warp_cubic, fused_convbn) for k, v in m.LAUNCHES.items()}))\n")
+
+
+def _run_cli(module, args, timeout=600, count_launches=False):
     """``python -m <module> <args>`` in a child process on this card;
-    returns its stdout, fails with its stderr's tail."""
+    returns its stdout, fails with its stderr's tail.  With
+    ``count_launches`` returns ``(stdout, the child's launch counts)``."""
     _release_memory()     # the child needs the memory this process caches
-    proc = subprocess.run([sys.executable, "-m", module, *args],
-                          cwd=os.path.dirname(os.path.abspath(__file__)),
+    cmd = ([sys.executable, "-c", _COUNTED_CHILD, module] if count_launches
+           else [sys.executable, "-m", module])
+    proc = subprocess.run(cmd + list(args), cwd=os.path.dirname(os.path.abspath(__file__)),
                           capture_output=True, text=True, timeout=timeout)
     _check(proc.returncode == 0, f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    return proc.stdout
+    if not count_launches:
+        return proc.stdout
+    last = proc.stdout.rstrip().splitlines()[-1]
+    _check(last.startswith(LAUNCHES_TAG), f"{module}: no launch counts:\n{proc.stdout[-2000:]}")
+    return proc.stdout, json.loads(last[len(LAUNCHES_TAG):])
 
 
 def phase_sweep(data_root, smi):
@@ -2630,7 +2685,7 @@ def phase_sweep(data_root, smi):
     foreground and writes the ``best_ckp`` inference reads), inference on
     each fold's test split.  Checks the fold JSONs, the summary (the fold
     means) and the table, then a second call that reads both folds from the
-    cache."""
+    cache.  Then ``phase_sweep_jagged``; returns its child's launch counts."""
     out = os.path.join(data_root, "sweep")
     args = ["--session", "Upperbound", "--tag", "sweep", "--folds", "0", "1",
             "--epoch", "1", "--max_steps_per_epoch", "8", "--lr", "0.003",
@@ -2655,6 +2710,49 @@ def phase_sweep(data_root, smi):
           f"Dice {folds[0]['dice']:.4f} / {folds[1]['dice']:.4f}, HD95 "
           f"{folds[0]['hd95']:.2f} / {folds[1]['hd95']:.2f}; the second call read both folds "
           f"from the cache in {t2 - t1:.1f} s", flush=True)
+    return phase_sweep_jagged(os.path.join(os.path.dirname(data_root), "sweep_jagged"), smi)
+
+
+# The jagged pool of the Experiment sweep: fold k tests patient k and trains
+# on the other four (96 slices: 8 steps of 12).
+SWEEP_PATIENTS = 5
+PACING_FLAGS = ["--do_loss_ent", "--do_decoder_consistency", "--do_aux_path", "--do_memory"]
+
+
+def phase_sweep_jagged(root, smi):
+    """``cli.sweep`` with the Experiment session (the four pacing flags, as
+    ``scripts/sweep_torch.py`` runs ``study_r5/sweep/``'s arm) in a child
+    process on a jagged pool of ``SWEEP_PATIENTS`` patients: folds 0 and 1,
+    1 epoch of 8 steps each at lr 0.003 (so that a fold saves the
+    ``best_ckp`` inference reads), inference on each fold's test patient.
+    The fold JSONs must carry the per-patient keys, and the child must have
+    launched kernels 1, 2 and 6b (``fused_loss_fwd`` as often as
+    ``fused_loss_bwd``); returns the child's launch counts."""
+    seed = _experiment_config().seed
+    make_loop_pool(root, seed, SWEEP_PATIENTS, difficulty="jagged", name="sweep (jagged)",
+                   threaded=True)
+    out = os.path.join(root, "sweep")
+    args = ["--session", "Experiment", *PACING_FLAGS, "--tag", "sweep", "--folds", "0", "1",
+            "--epoch", "1", "--max_steps_per_epoch", "8", "--lr", "0.003", "--no-tb_figures",
+            "--data_root", root, "--root", root, "--sweep_out", out]
+    t0 = time.perf_counter()
+    stdout, launches = _run_cli("pacingpseudo_torch.cli.sweep", args, count_launches=True)
+    t1 = time.perf_counter()
+    folds = {f: json.load(open(os.path.join(out, f"fold{f}.json"))) for f in (0, 1)}
+    keys = ("dice", "hd95", "dice_per_patient", "hd95_per_patient", "num_patients")
+    _check(all(all(k in r for k in keys) and r["num_patients"] == 1 and 0 <= r["dice"] <= 1
+               for r in folds.values()) and "| DSC |" in stdout,
+           f"sweep (jagged): fold results {folds}")
+    _check(all(launches.get(k, 0) >= 1 for k in ("fused_loss_fwd", "fused_loss_bwd",
+                                                   "warp_cubic"))
+           and launches["fused_loss_fwd"] == launches["fused_loss_bwd"],
+           f"sweep (jagged): the child's launches {launches}")
+    print(f"sweep (jagged): {smi}: the Experiment session, 2 folds of {SWEEP_PATIENTS} jagged "
+          f"patients trained and evaluated in {t1 - t0:.1f} s (child process), Dice "
+          f"{folds[0]['dice']:.4f} / {folds[1]['dice']:.4f} (per patient "
+          f"{folds[0]['dice_per_patient']:.4f} / {folds[1]['dice_per_patient']:.4f}); the "
+          f"child's launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
 
 
 def phase_loader_native(data_root, dev, smi):
@@ -2726,20 +2824,21 @@ DP_DTYPES = ("float32", "bfloat16")
 DP_NUDGE = {"float32": 1e-7, "bfloat16": 2.0 ** -8}
 
 
-def _rank_block(t, rows, n, split, space_index=0):
+def _rank_block(t, rows, n, split, space_index=0, every_rank=False):
     """A rank's block (its ``rows``, a slice of a batch of ``n``, and on a
     space axis its heights of the ``HeightSplit`` ``split``) of a tensor of
     the single-card forward: ``2n`` rows (weak, strong) where the two
     streams share the backbone, else ``n``.  A level below the split level
     is whole on every space rank: the block of space rank 0, None on the
-    others (its flips count once)."""
+    others (its flips count once), or with ``every_rank`` the whole level on
+    every rank."""
     if t.shape[0] == 2 * n:
         t = torch.cat([t[rows], t[n + rows.start:n + rows.stop]])
     else:
         t = t[rows]
     if split is not None:
         if split.replicated(t.shape[-1]):
-            return t if space_index == 0 else None
+            return t if space_index == 0 or every_rank else None
         t = t[..., split.rows(t.shape[-2] * split.stride // split.height), :]
     return t
 
@@ -2786,7 +2885,7 @@ def _dp_rank(rank, devices, store, work, n_space=1, config_kw=None):
         captured["batch"] = augment_fn(raw_batch, gen)
         return captured["batch"]
 
-    def update(cfg, step_ranks, nudge=None):
+    def update(cfg, step_ranks, nudge=None, branches=None):
         state = ckpt.restore_checkpoint(os.path.join(work, "ckp"),
                                         create_train_state(cfg, device=dev, seed=5))
         # A BN-fed bias's gradient on a rank, before the ranks sum them:
@@ -2805,7 +2904,7 @@ def _dp_rank(rank, devices, store, work, n_space=1, config_kw=None):
                                                       device=dev))
         before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
         signs = []
-        hooks = _record_signs(state.model, signs)
+        hooks = _record_signs(state.model, signs, branches)
         step = make_pacing_train_step(cfg, 100, ranks=step_ranks,
                                       augment_fn=capture if step_ranks else augment_fn)
         gen = torch.Generator(device=dev)
@@ -2835,12 +2934,26 @@ def _dp_rank(rank, devices, store, work, n_space=1, config_kw=None):
         # updates differ by a large part of a leaf's norm, as much as a
         # gradient averaged where it should be summed, so bf16 holds the
         # losses and branch flips beside its spread and reads the leaves.
+        # Where the leaves are held, the yardstick updates and the ranks'
+        # take the LeakyReLU branches of the single-card update ("eager"):
+        # a pre-activation within rounding of zero that takes the other
+        # branch (a flip, counted from the signs before the branch is
+        # taken and held on its own) moves a leaf's gradient by a pixel's
+        # share, in one channel as much as the leaf's whole spread, and
+        # where the ranks flipped it and no yardstick update did, beyond
+        # four yardsticks.  With the branches matched a leaf's error is
+        # the rounding the ranks add.
+        match = dtype == "float32"
         runs = (("eager", None), ("eager 2", (DP_NUDGE[dtype], 1)),
                 ("eager 3", (DP_NUDGE[dtype], 2)))
         for r, nudge in runs:
-            _, metrics[r], grads[r], deltas[r], signs[r], _, _ = update(cfg, None, nudge)
+            branches = signs["eager"] if match and r != "eager" else None
+            _, metrics[r], grads[r], deltas[r], signs[r], _, _ = update(cfg, None, nudge,
+                                                                        branches)
+        branches = ([_rank_block(t, rows, n, split, ranks.space_index, every_rank=True)
+                     for t in signs["eager"]] if match else None)
         state, metrics["ranks"], grads["ranks"], deltas["ranks"], signs["ranks"], \
-            launches, partial = update(cfg, ranks)
+            launches, partial = update(cfg, ranks, branches=branches)
         # One eps of the dtype on the ranks' partial gradients, summed.
         names = sorted(partial)
         eps = torch.finfo(getattr(torch, dtype)).eps
@@ -2962,6 +3075,7 @@ def _hold_on_ranks(name, dev, data_root, raws, smi, single_ms, world, n_space=1,
     for dtype in DP_DTYPES:
         print(f"{name} {dtype}: {smi}: each rank's augmented rows == the single-card batch's "
               f"bit for bit; the update on {world} ranks == the single-card eager update"
+              f"{' on its LeakyReLU branches' if dtype == 'float32' else ''}"
               f"{results[0]['summary'][dtype]}; LeakyReLU flips by rank "
               f"{[r['flips'][dtype] for r in results]}; a BN-fed bias's largest partial "
               f"gradient before the sum by rank {[r['partial'][dtype] for r in results]}; "
@@ -2995,7 +3109,9 @@ def phase_data_parallel(dev, data_root, raws, smi, single_ms):
     (``_hold_against_eager``, with the LeakyReLU branch flips of each
     rank's rows summed; two eager updates from one state run the same
     forward, but the ranks' forward runs at half the batch, where cuDNN
-    rounds otherwise; in bf16 the losses, flips and BN-fed biases, with
+    rounds otherwise; in float32 the yardstick updates and the ranks' take
+    the eager update's LeakyReLU branches, the flips counted before; in
+    bf16 the losses, flips and BN-fed biases, with
     the other leaves' gradients and updates read, not held), the ranks'
     parameters, BN statistics and bank must
     be equal, and each rank must launch ``fused_loss_fwd``,
@@ -3825,8 +3941,7 @@ def phase_profile_dir(data_root, smi):
     run_dir = os.path.join(data_root, "runs", "profiled")
     t0 = time.perf_counter()
     _run_cli("pacingpseudo_torch.cli.train", [
-        "--session", "Experiment", "--do_loss_ent", "--do_decoder_consistency",
-        "--do_aux_path", "--do_memory", "--tag", "profiled", "--epoch", "3",
+        "--session", "Experiment", *PACING_FLAGS, "--tag", "profiled", "--epoch", "3",
         "--max_steps_per_epoch", "2", "--no-tb_figures", "--data_root", data_root,
         "--run_dir", run_dir, "--profile_dir", profile])
     traces = os.listdir(profile)
@@ -3989,7 +4104,7 @@ def main() -> None:
         loop_root = os.path.join(root, "loop")
         make_loop_pool(loop_root, config.seed)
         loop_launches = phase_loop_graph(dev, counters, loop_root, smi)
-        phase_sweep(loop_root, smi)
+        sweep_launches = phase_sweep(loop_root, smi)
         phase_loader_native(loop_root, dev, smi)
         dp_launches = phase_data_parallel(dev, loop_root, dp_raws, smi, raw_ms)
         _release_memory()
@@ -4024,7 +4139,8 @@ def main() -> None:
              **{f"train (data-parallel), rank {r}": n for r, n in enumerate(dp_launches)},
              **sp_launches, **deep_launches, **rg_launches,
              "study (tiny), Experiment arm": study_launches,
-             "study (tiny, dilated), Experiment arm": dilated_launches, **cardiac_launches}
+             "study (tiny, dilated), Experiment arm": dilated_launches, **cardiac_launches,
+             "sweep (jagged), Experiment session (child process)": sweep_launches}
     for row in rows:
         # Each kernel's launches on the path that runs it: the default raw
         # step, or the raw step on the other warp route for the warp kernel

@@ -67,9 +67,26 @@ def build_parser():
     return p
 
 
+def write_pool(args) -> None:
+    """The ``--synthetic_data`` pool of the parsed ``args``, as ``main``
+    writes it before the first fold (an identical pool already under
+    ``--data_root`` is kept)."""
+    from pacingpseudo_torch.config import DATASETS
+    from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
+    spec = DATASETS[args.dataset]
+    write_synthetic_dataset(
+        args.data_root, args.dataset, args.synthetic_data,
+        tuple(args.input_size) if args.input_size else spec.input_size,
+        spec.num_classes, spec.ignored_index,
+        modality=args.modality, seed=args.seed,
+        size_jitter=args.synthetic_size_jitter,
+        difficulty=args.synthetic_difficulty,
+        scribble_style=args.synthetic_scribble_style,
+        scribble_ratio=args.synthetic_scribble_ratio)
+
+
 def main(argv=None):
     from pacingpseudo_torch.cli.train import config_from_args, devices_from_gpu
-    from pacingpseudo_torch.config import DATASETS
     from pacingpseudo_torch.evals.infer import run_inference
     from pacingpseudo_torch.train.loop import train_driver
 
@@ -80,17 +97,7 @@ def main(argv=None):
     cfg_hash = _config_hash(args, config_from_args)
 
     if args.synthetic_data:
-        from pacingpseudo_torch.data.synthetic import write_synthetic_dataset
-        spec = DATASETS[args.dataset]
-        write_synthetic_dataset(
-            args.data_root, args.dataset, args.synthetic_data,
-            tuple(args.input_size) if args.input_size else spec.input_size,
-            spec.num_classes, spec.ignored_index,
-            modality=args.modality, seed=args.seed,
-            size_jitter=args.synthetic_size_jitter,
-            difficulty=args.synthetic_difficulty,
-            scribble_style=args.synthetic_scribble_style,
-            scribble_ratio=args.synthetic_scribble_ratio)
+        write_pool(args)
         args.synthetic_data = 0
 
     eval_ds = args.dataset

@@ -82,6 +82,9 @@ class AuxPath(nn.Module):
             BatchNorm2d(hid_ch, device=device),
             nn.LeakyReLU(1e-2),
         )
+        # JAX's conv_bottleneck takes Flax's default zero bias
+        # (pacingpseudo_tpu/models/aux_path.py:63-67).
+        self.layer_bottleneck[1].zero_bias_init = True
         self.fc_cls = nn.Sequential(
             Dropout2d(aux_drop_prob),
             Conv2d(hid_ch, num_classes, 1, bias=False, device=device),

@@ -306,7 +306,9 @@ def torch_default_init_(module: nn.Module, generator: torch.Generator):
     weight and ``U(±1/sqrt(fan_in))`` for the bias, both come to
     ``U(±1/sqrt(fan_in))`` with ``fan_in = weight.size(1) * kh * kw`` (for a
     transposed conv that is its out-channels, as in torch).  BatchNorm
-    keeps ones and zeros.
+    keeps ones and zeros.  A conv marked ``zero_bias_init`` (Flax's default
+    zero bias, where the JAX package gives no ``bias_init``) still draws its
+    bias, so that every later leaf keeps its draw, and then zeroes it.
     """
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -315,4 +317,6 @@ def torch_default_init_(module: nn.Module, generator: torch.Generator):
             nn.init.uniform_(m.weight, -bound, bound, generator=generator)
             if m.bias is not None:
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+                if getattr(m, "zero_bias_init", False):
+                    m.bias.zero_()
     return module

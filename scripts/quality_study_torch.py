@@ -144,7 +144,7 @@ def write_pool(argv: List[str], r3_slices: int = 0, scribble_style: str = "skele
             if mark is not None and {k: mark[k] for k in want} != want:
                 raise SystemExit(f"{args.data_root} holds a pool of {mark}, not {want}")
             r3.write_pool(args.data_root, r3_slices, scribble_style=scribble_style)
-            got = r3.fold0_identity(args.data_root, args.batch_size)
+            got = r3.fold_identity(args.data_root, args.batch_size)
             expected = r3.expected_fold0(r3_slices, args.batch_size)
             if got != expected:
                 raise SystemExit(f"{args.data_root}: fold 0 reads {got}, not {expected}")

@@ -128,8 +128,8 @@ def expected_fold0(num_slices: int, batch_size: int) -> Dict[str, int]:
             "steps": train // batch_size}
 
 
-def fold0_identity(data_root: str, batch_size: int) -> Dict[str, int]:
-    """Fold 0's figures as the pool on disk gives them (``expected_fold0``'s
+def fold_identity(data_root: str, batch_size: int, fold: int = 0) -> Dict[str, int]:
+    """A fold's figures as the pool on disk gives them (``expected_fold0``'s
     keys): the lists' lengths, the test slices' patients, the largest slice
     extent rounded up to 32 as the loader's canvas is."""
     import numpy as np
@@ -137,7 +137,7 @@ def fold0_identity(data_root: str, batch_size: int) -> Dict[str, int]:
     base = split_dir(data_root)
     lists = {}
     for name in ("train", "test"):
-        with open(os.path.join(base, f"{name}_fold0.txt")) as f:
+        with open(os.path.join(base, f"{name}_fold{fold}.txt")) as f:
             lists[name] = f.read().split()
     extent = 0
     for rel in lists["train"] + lists["test"]:

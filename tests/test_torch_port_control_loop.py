@@ -158,6 +158,33 @@ def test_study_runner_trains_every_seed_on_the_r3_pool(tmp_path):
                                                    2, "0")
 
 
+_CACHE_OPTIONS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+                  "jax_persistent_cache_min_entry_size_bytes")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_compiles(tmp_path_factory):
+    """JAX's compiled executables shared by the module's two JAX loops
+    through a persistent compilation cache in a directory of the module's
+    own: the frozen-BN case's loop reads the first loop's ``model.init`` and
+    validation step from it (~3.5 s of its ~27 s on an idle core).  The
+    cache is reset on the way in and out (JAX checks for a cache directory
+    once, at its first compile), and the options restored."""
+    from jax._src import compilation_cache
+
+    saved = {k: getattr(jax.config, k) for k in _CACHE_OPTIONS}
+    jax.config.update("jax_compilation_cache_dir", str(tmp_path_factory.mktemp("jax_cache")))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """Torch on one thread in this module (see ``test_torch_port_infer.py``)."""

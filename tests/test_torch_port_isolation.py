@@ -22,7 +22,11 @@ STUDY_SCRIPTS = (ROOT / "scripts" / "quality_study_torch.py",
                  ROOT / "scripts" / "quality_study_compare.py",
                  ROOT / "scripts" / "study_r3_pool_torch.py",
                  ROOT / "scripts" / "lvsc_rehearsal_torch.py",
-                 ROOT / "scripts" / "lvsc_compare.py")
+                 ROOT / "scripts" / "lvsc_compare.py",
+                 ROOT / "scripts" / "sweep_torch.py",
+                 ROOT / "scripts" / "sweep_compare.py",
+                 ROOT / "scripts" / "control_from_jax_init.py",
+                 ROOT / "scripts" / "rank_holds_torch.py")
 
 
 def _port_modules():
@@ -73,7 +77,7 @@ def test_the_study_scripts_load_no_jax():
         "    spec = importlib.util.spec_from_file_location('s', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "import pacingpseudo_torch.cli.train, pacingpseudo_torch.cli.inference\n"
-        "import pacingpseudo_torch.tools.study_summary\n"
+        "import pacingpseudo_torch.cli.sweep, pacingpseudo_torch.tools.study_summary\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout

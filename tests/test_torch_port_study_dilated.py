@@ -83,7 +83,7 @@ def test_dilated_r3_pool_matches_the_jax_writer(tmp_path):
         assert test == got[fold::5] and train == [p for p in got if p not in test]
     assert pool.read_marker(str(tmp_path / "port")) == {
         "slices": 48, "size": (64, 64), "seed": 1, "scribble_style": "dilated"}
-    assert pool.fold0_identity(str(tmp_path / "port"), 12) == {
+    assert pool.fold_identity(str(tmp_path / "port"), 12) == {
         **pool.expected_fold0(48, 12), "canvas": 64}
 
 
