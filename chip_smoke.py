@@ -1104,39 +1104,60 @@ def make_batch(n, size, num_classes, seed, dev):
             "valid_mask": t(valid[:, None])}
 
 
+# Start epochs of the parity holds (of the 400-epoch schedule): at epoch 0
+# the entropy and soft-CE losses weigh e^-8 = 3.4e-4 of their weight
+# (``gaussian_ramp_up``, max_t 80), at epoch 395 all of it, with the bank's
+# momentum at 0.0175.
+PARITY_EPOCHS = (0, 395)
+
+
 def phase_parity(dev):
-    """The kernels' step against the loss library's step, same state."""
+    """The kernels' step against the loss library's step, same state, at
+    each start epoch of ``PARITY_EPOCHS``, TF32 off (the bounds are
+    float32's)."""
     from pacingpseudo_torch.config import ExperimentConfig
     from pacingpseudo_torch.train.state import create_train_state
     from pacingpseudo_torch.train.step import make_pacing_train_step
 
+    steps_per_epoch = 4
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     batch = make_batch(2, 64, 4, seed=3, dev=dev)
-    runs = {}
-    for mode in ("auto", "off"):
-        config = ExperimentConfig(
-            num_classes=4, ignored_index=4, init_ch=8, hid_ch=16, batch_size=2,
-            session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
-            do_aux_path=True, do_memory=True, compute_dtype="float32",
-            use_pallas_loss=mode).validate()
-        state = create_train_state(config, device=dev, seed=11)
-        metrics = make_pacing_train_step(config, steps_per_epoch=4)(state, batch)
-        grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
-        runs[mode] = ({k: float(v) for k, v in metrics.items()}, grads)
+    for epoch in PARITY_EPOCHS:
+        runs = {}
+        for mode in ("auto", "off"):
+            config = ExperimentConfig(
+                num_classes=4, ignored_index=4, init_ch=8, hid_ch=16, batch_size=2,
+                session="Experiment", do_loss_ent=True, do_decoder_consistency=True,
+                do_aux_path=True, do_memory=True, compute_dtype="float32",
+                use_pallas_loss=mode).validate()
+            state = create_train_state(config, device=dev, seed=11)
+            state.step = epoch * steps_per_epoch
+            metrics = make_pacing_train_step(config, steps_per_epoch)(state, batch)
+            grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+            runs[mode] = ({k: float(v) for k, v in metrics.items()}, grads,
+                          state.model.aux_path.memory_bank.clone())
+        (m_k, g_k, bank_k), (m_l, g_l, bank_l) = runs["auto"], runs["off"]
+        tag = f"parity, epoch {epoch}"
+        for k in m_l:
+            _check(math.isclose(m_k[k], m_l[k], rel_tol=1e-4, abs_tol=1e-7),
+                   f"{tag}: {k} {m_k[k]} vs {m_l[k]}")
+        for k, want in g_l.items():
+            # A conv bias that feeds a BatchNorm has a true gradient of 0: hold
+            # it against its conv weight's gradient instead.
+            bn_fed = k.endswith(".conv.bias") or k == "aux_path.layer_bottleneck.1.bias"
+            scale = float((g_l[k[:-4] + "weight"] if bn_fed else want).abs().max())
+            e = float((g_k[k] - want).abs().max())
+            _check(e <= 1e-3 * scale, f"{tag}: grad {k} err {e} vs max {scale}")
+        e = float((bank_k - bank_l).abs().max())
+        _check(e <= 1e-4 * float(bank_l.abs().max()), f"{tag}: bank err {e}")
+        print(f"{tag}: kernel step == library step over {len(g_l)} gradients and the "
+              f"bank, loss_ent {m_k['loss_ent']:.6f}, loss_cr {m_k['loss_cr']:.6f}, "
+              f"loss_total {m_k['loss_total']:.6f}", flush=True)
     torch.backends.cudnn.deterministic = False
-    (m_k, g_k), (m_l, g_l) = runs["auto"], runs["off"]
-    for k in m_l:
-        _check(math.isclose(m_k[k], m_l[k], rel_tol=1e-4, abs_tol=1e-7),
-               f"parity: {k} {m_k[k]} vs {m_l[k]}")
-    for k, want in g_l.items():
-        # A conv bias that feeds a BatchNorm has a true gradient of 0: hold
-        # it against its conv weight's gradient instead.
-        bn_fed = k.endswith(".conv.bias") or k == "aux_path.layer_bottleneck.1.bias"
-        scale = float((g_l[k[:-4] + "weight"] if bn_fed else want).abs().max())
-        e = float((g_k[k] - want).abs().max())
-        _check(e <= 1e-3 * scale, f"parity: grad {k} err {e} vs max {scale}")
-    print(f"parity: kernel step == library step over {len(g_l)} gradients, "
-          f"loss_total {m_k['loss_total']:.6f}", flush=True)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _grads_close_l2(tag, got, want, rtol):
@@ -2094,7 +2115,7 @@ def _bn_fed_bias(name):
     return name.endswith(".conv.bias") or name == "aux_path.layer_bottleneck.1.bias"
 
 
-def _hold_replay(name, config, augment_fn, raws, dev):
+def _hold_replay(name, config, augment_fn, raws, dev, start=0):
     """One replayed update of ``config``'s raw step against the eager update
     from the same state and seeds, on ``raws[1]`` after an update on
     ``raws[0]``, held twice (:func:`_hold_replay_once`):
@@ -2114,22 +2135,26 @@ def _hold_replay(name, config, augment_fn, raws, dev):
       decomposition (``_upsample_linear_vec``, an ``index_put`` backward),
       not the kernel of the default mode.
 
-    Returns the phase line's summary of both."""
+    Both start at update ``start``.  Returns the phase line's summary of
+    both."""
     out = ["default mode: " + _hold_replay_once(f"{name} (default mode)", config,
-                                                 augment_fn, raws, dev, EAGER_RUNS_DEFAULT)]
+                                                 augment_fn, raws, dev, EAGER_RUNS_DEFAULT,
+                                                 start=start)]
     modes = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     try:
         out.append("deterministic: " + _hold_replay_once(f"{name} (deterministic)", config,
-                                                         augment_fn, raws, dev, EAGER_RUNS))
+                                                         augment_fn, raws, dev, EAGER_RUNS,
+                                                         start=start))
     finally:
         torch.use_deterministic_algorithms(modes[0], warn_only=True)
         torch.backends.cudnn.deterministic = modes[1]
     return " || ".join(out)
 
 
-def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=None):
+def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=None,
+                      start=0):
     """The hold of :func:`_hold_replay` in the current mode; with ``ranks``
     (``parallel.mesh.RankGroup``) every state is this rank's replica, every
     update one on the ranks, and the LeakyReLU flips this rank's block's.
@@ -2137,7 +2162,8 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=Non
     (``StepGraph``); its state goes through a checkpoint (the eager layout)
     into one fresh eager state a name of ``eager_runs``; then the second
     update is a replay on one side and the eager step on each of the
-    others.  The largest difference of ``eager_runs[1:]`` from ``"eager"``
+    others.  The first update is update ``start`` of the schedule (100
+    updates an epoch).  The largest difference of ``eager_runs[1:]`` from ``"eager"``
     is the step's own spread (``yard``), taken in this run.  Each quantity
     is held at the larger of its fixed bound and 4 x yard
     (:func:`_hold_against_eager`):
@@ -2168,6 +2194,7 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=Non
     make = (make_upper_bound_train_step if config.session == "Upperbound"
             else make_pacing_train_step)
     state_g = create_train_state(config, device=dev, seed=11)
+    state_g.step = start
     if ranks is not None:
         mesh.replicate(state_g.model, ranks)
     signs = {"graph": []}
@@ -2183,7 +2210,7 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=Non
         return raw
 
     graph.run(step_g, state_g, raws[0], as_batch, gen_g, reseed)    # eager + capture
-    _check(graph.captures == 1 and graph.replays == 0 and state_g.step == 1,
+    _check(graph.captures == 1 and graph.replays == 0 and state_g.step == start + 1,
            f"{name}: {graph.captures} captures, {graph.replays} replays")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
         ckpt.save_checkpoint(os.path.join(tmp, "ckp"), state_g)
@@ -2206,7 +2233,7 @@ def _hold_replay_once(name, config, augment_fn, raws, dev, eager_runs, ranks=Non
     for hook in hooks:
         hook.remove()
     states["graph"] = state_g
-    _check(graph.replays == 1 and all(s.step == 2 for s in states.values()),
+    _check(graph.replays == 1 and all(s.step == start + 2 for s in states.values()),
            f"{name}: {graph.replays} replays, steps {[s.step for s in states.values()]}")
     metrics = {r: {k: float(v) for k, v in m.items()} for r, m in metrics.items()}
     grads = {r: {k: p.grad.clone() for k, p in s.model.named_parameters()}
@@ -2313,7 +2340,8 @@ def _hold_against_eager(name, cand, verb, metrics, grads, deltas, flips, n_signs
 def phase_graph_parity(dev, optimizer):
     """``_hold_replay`` for the Experiment step with the augmentation inside
     at the parity phases' size (2 x 64 x 64, init_ch 8, float32, TF32 off,
-    deterministic cuDNN), with ``optimizer``."""
+    deterministic cuDNN), with ``optimizer``, from each start epoch of
+    ``PARITY_EPOCHS``."""
     from pacingpseudo_torch.aug.engine import make_train_augment_fn
     from pacingpseudo_torch.aug.params import BaseAugParams, StrongAugParams
     from pacingpseudo_torch.config import ExperimentConfig
@@ -2332,12 +2360,15 @@ def phase_graph_parity(dev, optimizer):
         augment_fn = make_train_augment_fn(
             BaseAugParams(crop_size=(64, 64), num_classes=4, ignored_index=4),
             StrongAugParams.color(1.0), True)
-        summary = _hold_replay(name, config, augment_fn,
-                               [_small_raw(700 + i, dev) for i in range(2)], dev)
+        raws = [_small_raw(700 + i, dev) for i in range(2)]
+        summaries = [(epoch, _hold_replay(f"{name}, epoch {epoch}", config, augment_fn,
+                                          raws, dev, start=100 * epoch))
+                     for epoch in PARITY_EPOCHS]
     finally:
         torch.backends.cudnn.deterministic = False
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    print(f"{name}: {summary}", flush=True)
+    for epoch, summary in summaries:
+        print(f"{name}, epoch {epoch}: {summary}", flush=True)
 
 
 def _time_replay_and_eager(name, config, augment_fn, raws, dev, counters, ranks=None):

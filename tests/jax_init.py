@@ -3,6 +3,9 @@
     JAX_PLATFORMS=cpu python tests/jax_init.py \\
         --config study_r3/Control/run-fold0/config.json \\
         --out build/jax_init/control_seed1.pt
+    JAX_PLATFORMS=cpu python tests/jax_init.py \\
+        --config study_r5/sweep/Experiment80.log \\
+        --out build/jax_init/experiment80_seed1.pt
 
 ``pacingpseudo_tpu.train.loop`` draws a run's variables with
 ``create_train_state(jax.random.PRNGKey(config.seed), model, tx, template)``
@@ -24,6 +27,10 @@ script at the config's own width (init_ch 32: ~80 MB of float32).  JAX's
 ``model.init`` is compiled at XLA's lowest backend optimisation, which only
 shortens the compile.  A test helper, not a test: it imports JAX and the JAX
 package, which the port's scripts never do.
+
+``--config`` is a run's ``config.json``, or an arm log of the JAX CLI
+(``study_r5/sweep/Control80.log``), whose first ``config:`` line is read: the
+run of fold 0 at the log's seed.
 """
 from __future__ import annotations
 
@@ -69,6 +76,19 @@ def config_of(run_config: dict) -> ExperimentConfig:
     return ExperimentConfig(**kw)
 
 
+def read_config(path: str) -> dict:
+    """The run config of ``path``: a ``config.json``, or the first
+    ``config: {...}`` line of a JAX arm log."""
+    with open(path) as f:
+        text = f.read()
+    if text.lstrip().startswith("{"):
+        return json.loads(text)
+    for line in text.splitlines():
+        if line.startswith("config: "):
+            return json.loads(line[len("config: "):])
+    raise SystemExit(f"{path}: neither a config.json nor a log with a config: line")
+
+
 def draw(config: ExperimentConfig, batch: int = 2, size: int = 64):
     """``(params, batch_stats, memory_bank)`` as numpy (trees), drawn as the
     loop draws a run of ``config`` (siamese unless the Upperbound session;
@@ -95,8 +115,7 @@ def main(argv=None):
                                                      "config.json"))
     ap.add_argument("--out", default=os.path.join("build", "jax_init", "control_seed1.pt"))
     args = ap.parse_args(argv)
-    with open(args.config) as f:
-        config = config_of(json.load(f))
+    config = config_of(read_config(args.config))
     params, stats, bank = draw(config)
     again = draw(config, batch=1, size=96)
     same = all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves((params, stats, bank)),

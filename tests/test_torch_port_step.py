@@ -1,11 +1,20 @@
 """Port parity: one pacing train step and one eval step of
 ``pacingpseudo_torch.train.step`` against ``pacingpseudo_tpu.train.step``
-(CPU, float32, 64x64, init_ch 8, batch 2, the Experiment session's loss
-set).
+(CPU, float32 and bfloat16, 64x64, init_ch 8, batch 2, the Experiment
+session's loss set).
 
 Both sides start from the same state: the port's seeded init, carried to
 JAX by the JAX package's importer, a warm memory bank with one cold row,
-step 0.  The batch is one the JAX ``augment_batch`` made (weak and strong
+at step 0 or, for the cases with a start epoch, at the first update of
+that epoch (``state.step`` on both sides; JAX's learning-rate schedule
+reads the optimizer's own count, set to the same step, while Adam's
+moments stay fresh on both).  At epoch 0 both loss ramps weigh e^-8 =
+3.4e-4, so the entropy and soft-CE gradients enter far under the bounds
+below; the cases ``late_395`` (whole weight, bank momentum 0.0175),
+``mid_200`` (whole weight, 0.48) and ``ramp_40`` (0.018, 0.82) hold
+them where they weigh, on the library and the fused-loss paths, and the
+routing variants again at epoch 395.  One compiled JAX step serves every
+start epoch of a config.  The batch is one the JAX ``augment_batch`` made (weak and strong
 streams).  The JAX side's gradients are read from an identity stage in
 front of its optimizer.  To keep this file's compile time down, the JAX
 programs draw from an ``rbg`` key instead of threefry and are compiled at
@@ -29,6 +38,51 @@ Tolerances: weighted metrics rtol 1e-4; BN statistics and the bank within
 1e-4 x max.  Gradients: see ``_assert_grads_close``; new parameters follow
 from them through Adam's first step (``_assert_new_params_close``).
 ``_nchw`` is the one place that permutes NHWC into NCHW.
+
+bfloat16 (``bf16_late_395``, ``control_bf16_late_395``: both sides at
+``compute_dtype="bfloat16"``, epoch 395).  The yardstick is JAX's own: on
+the same state and batch, per leaf the L2 distance of the port's bfloat16
+gradient from JAX's bfloat16 gradient is at most ``BF16_SPREAD`` (4) x
+the distance between JAX's bfloat16 and float32 gradients (measured worst
+ratio 1.69, Experiment; 1.66, Control); the same rule holds the BN
+statistics and the bank, and the elements whose first Adam step takes the
+other sign than JAX's bfloat16 step, counted over all leaves.  A metric's relative error is at
+most 4 x the largest relative bfloat16-to-float32 distance among the
+step's loss metrics on JAX's side (one scalar's own distance is a single
+draw of rounding: JAX's ``loss_aux_cls`` moved 3e-5 relative where its
+``loss_pce`` moved 9.4e-4).  Where each side casts:
+
+- input: JAX ``x.astype(dt)`` (``unet.py:418``), port ``x.to(dtype)``
+  (``unet.py:274``);
+- convs: both cast input, kernel and bias to bf16 and return bf16 (JAX
+  ``nn.Conv(dtype=bf16)``, the bias added in bf16 after the product; port
+  ``Conv2d``, ``unet.py:60-67``, the bias inside ``F.conv2d``);
+- BatchNorm: statistics and normalisation in float32 on both sides, running
+  statistics float32; JAX casts the output back to bf16 inside the norm
+  (``ops/fused_bn.py``), the port after it (``unet.py:139``);
+- LeakyReLU in bf16 on both (JAX ``unet.py:164``, its slope rounded to
+  bf16, 0.010009765625; port ``unet.py:139``, slope 0.01 in float32
+  arithmetic, rounded once);
+- max-pool in bf16; the decoder's 2x bilinear upsample in bf16 (JAX with
+  interpolation weights rounded to bf16, ``ops/resize.py:47-49``; port
+  ``F.interpolate``, float32 weights);
+- skip concat: the skip cast to the upsampled tensor's dtype (JAX
+  ``unet.py:258``, port ``unet.py:223``);
+- logits: the final 1x1 conv in bf16, cast to float32 (JAX
+  ``unet.py:510``, port ``unet.py:288``); every loss, the weak stream's
+  softmax target included, in float32 on both;
+- aux path: the concat of stages 6 and 5 cast to bf16, its conv in bf16,
+  its BatchNorm, LeakyReLU, classifier and resize in float32 (JAX
+  ``aux_path.py:82-91``, port ``aux_path.py:98-101``);
+- the bank: float32 features (resized in float32) and float32 EMA on both.
+
+JAX's bfloat16 step runs the space-to-depth stage-1 blocks
+(``s2d_hires=True``), as the sweep's config did; the port has no S2D. In
+bfloat16 too that is a layout: ``_S2DConv`` (``unet.py:304-310``) returns
+bf16 as ``nn.Conv`` does, and on this batch JAX's bf16 forward with S2D and
+without it differ in 0.2% of the logits, by one bf16 rounding (max 1.2e-2,
+RMS 1.5e-4, against an RMS of 4.9e-2 between JAX's bf16 and float32
+logits); the aux features are equal bit for bit.
 
 Why the gradients are not all held at 1e-3 x max: the two float32 forwards
 differ by up to ~5e-5 in a BatchNorm output, and a pixel whose
@@ -79,21 +133,39 @@ FLAGS = dict(num_classes=C, ignored_index=C, init_ch=INIT_CH, hid_ch=HID,
              do_aux_path=True, do_memory=True, compute_dtype="float32")
 CONTROL = dict(session="Control", do_loss_ent=False, do_decoder_consistency=False,
                do_aux_path=False, do_memory=False)
+# Start epochs of a case (``STEPS_PER_EPOCH`` updates an epoch, FLAGS'
+# 400-epoch schedule).  Both loss ramps are ``gaussian_ramp_up(epoch, w,
+# max_t=80, scale=8)``: e^-8 = 3.4e-4 of their weight at epoch 0, e^-4 =
+# 0.018 at epoch 40, the whole weight from epoch 80 on; the bank's momentum
+# ``0.9 (1 - epoch/400)^0.9``: 0.9, 0.82, 0.48 and 0.0175 at epochs 0, 40,
+# 200 and 395.
+LATE, MID, RAMP = 395, 200, 40
+BF16_SPREAD = 4.0
 # A case of test_train_step_matches_jax: (config overrides of both sides,
 # the port's own overrides, the ConvLayers' LeakyReLU slope or None for the
-# model's own).
+# model's own, the start epoch).
 CASES = {
-    "auto": ({}, {"use_pallas_loss": "auto"}, None),
-    "on": ({}, {"use_pallas_loss": "on"}, None),
-    "l1_loss": ({"loss_cr_variants": "l1_loss"}, {}, None),
-    "l2_loss": ({"loss_cr_variants": "l2_loss"}, {}, None),
-    "kl_loss": ({"loss_cr_variants": "kl_loss"}, {}, None),
-    "detach_weak_cr": ({"detach_weak_cr": True}, {}, None),
-    "memory_update_all": ({"memory_update_mode": "all"}, {}, None),
-    "aux_on_weak": ({"aux_on_strong": False}, {}, None),
-    "ensemble_mean": ({"ensemble_mode": "mean"}, {}, None),
-    "control_slope1": (CONTROL, {}, 1.0),
-    "unfused_streams_slope1": ({"fuse_streams": False}, {}, 1.0),
+    "auto": ({}, {"use_pallas_loss": "auto"}, None, 0),
+    "on": ({}, {"use_pallas_loss": "on"}, None, 0),
+    "l1_loss": ({"loss_cr_variants": "l1_loss"}, {}, None, 0),
+    "l2_loss": ({"loss_cr_variants": "l2_loss"}, {}, None, 0),
+    "kl_loss": ({"loss_cr_variants": "kl_loss"}, {}, None, 0),
+    "detach_weak_cr": ({"detach_weak_cr": True}, {}, None, 0),
+    "memory_update_all": ({"memory_update_mode": "all"}, {}, None, 0),
+    "aux_on_weak": ({"aux_on_strong": False}, {}, None, 0),
+    "ensemble_mean": ({"ensemble_mode": "mean"}, {}, None, 0),
+    "control_slope1": (CONTROL, {}, 1.0, 0),
+    "unfused_streams_slope1": ({"fuse_streams": False}, {}, 1.0, 0),
+    "late_395": ({}, {"use_pallas_loss": "auto"}, None, LATE),
+    "late_395_on": ({}, {"use_pallas_loss": "on"}, None, LATE),
+    "mid_200": ({}, {"use_pallas_loss": "on"}, None, MID),
+    "ramp_40": ({}, {"use_pallas_loss": "on"}, None, RAMP),
+    "detach_weak_cr_late_395": ({"detach_weak_cr": True}, {}, None, LATE),
+    "memory_update_all_late_395": ({"memory_update_mode": "all"}, {}, None, LATE),
+    "aux_on_weak_late_395": ({"aux_on_strong": False}, {}, None, LATE),
+    "ensemble_mean_late_395": ({"ensemble_mode": "mean"}, {}, None, LATE),
+    "bf16_late_395": ({"compute_dtype": "bfloat16"}, {"use_pallas_loss": "on"}, None, LATE),
+    "control_bf16_late_395": ({**CONTROL, "compute_dtype": "bfloat16"}, {}, None, LATE),
 }
 
 
@@ -170,25 +242,50 @@ def _batch_for(batch, flags):
     return {k: v for k, v in batch.items() if k != "image_strong"}
 
 
-def _jax_step(batch, overrides, slope, with_eval=False):
+def _opt_state_at(tx, params, step):
+    """``tx.init(params)`` with the learning-rate schedule's count at
+    ``step``: the JAX optimizer reads its rate from that count, the port
+    from ``state.step``.  Adam's moments and count stay fresh on both
+    sides (the first Adam step, which ``_assert_new_params_close`` reads)."""
+    def at(s):
+        if isinstance(s, optax.ScaleByScheduleState):
+            return s._replace(count=jnp.asarray(step, jnp.int32))
+        return s
+    return jax.tree.map(at, tx.init(params),
+                        is_leaf=lambda s: isinstance(s, optax.ScaleByScheduleState))
+
+
+def _jax_step(batch, overrides, slope, epoch=0, programs=None, with_eval=False):
     """The JAX step (and eval step) of ``FLAGS`` + ``overrides`` from the
-    port's seeded state, on ``batch``."""
+    port's seeded state at update ``epoch * STEPS_PER_EPOCH``, on ``batch``.
+    ``programs`` caches the compiled step by config: the start step is a
+    value of the state, so every epoch of one config runs one program."""
     flags = {**FLAGS, **overrides}
     sd0 = _initial_state_dict(flags)
     batch = _batch_for(batch, flags)
     params, stats, bank = convert_state_dict({k: v.numpy() for k, v in sd0.items()})
     config = JaxConfig(**flags).validate()
+    bf16 = config.compute_dtype == "bfloat16"
+    # bfloat16 runs the S2D stage-1 blocks, as the JAX loop builds the
+    # model from the config (s2d_hires True); float32 the plain blocks.
     model = JaxPacing(num_classes=C, init_ch=INIT_CH, do_aux_path=config.do_aux_path,
                       hid_ch=HID, aux_on_strong=config.aux_on_strong,
-                      fuse_streams=config.fuse_streams, s2d_hires=False,
-                      dtype=jnp.float32)
+                      fuse_streams=config.fuse_streams, s2d_hires=bf16,
+                      dtype=jnp.bfloat16 if bf16 else jnp.float32)
     tx = optax.chain(_grad_stash(), jax_optim.make_optimizer(config, STEPS_PER_EPOCH))
-    state = JaxState(step=jnp.zeros((), jnp.int32), params=params,
-                     batch_stats=stats, opt_state=tx.init(params),
+    start = epoch * STEPS_PER_EPOCH
+    state = JaxState(step=jnp.asarray(start, jnp.int32), params=params,
+                     batch_stats=stats, opt_state=_opt_state_at(tx, params, start),
                      memory_bank=None if bank is None else jnp.asarray(bank))
+    key = jax.random.key(0, impl="rbg")
+    programs = {} if programs is None else programs
+    name = (tuple(sorted(overrides.items())), slope)
     with _slope(slope):
-        step = jax_train_step(config, model, tx, STEPS_PER_EPOCH, donate=False)
-        new_state, metrics = _compiled(step, state, batch, jax.random.key(0, impl="rbg"))
+        if name not in programs:
+            step = jax_train_step(config, model, tx, STEPS_PER_EPOCH, donate=False)
+            programs[name] = step.lower(state, batch, key).compile(
+                compiler_options={"xla_backend_optimization_level": 0})
+        new_state, metrics = programs[name](state, batch, key)
         out = dict(sd0=sd0, batch=batch, metrics=_np(metrics),
                    grads=_np(new_state.opt_state[0]),
                    new_sd=from_jax_variables(
@@ -206,21 +303,26 @@ def batch():
 
 
 @pytest.fixture(scope="module")
-def run(batch):
-    """The JAX step and eval step from the shared state and batch."""
-    return _jax_step(batch, {}, None, with_eval=True)
+def programs():
+    """The compiled JAX steps of this module, one a config."""
+    return {}
 
 
 @pytest.fixture(scope="module")
-def jax_runs(batch, run):
-    """The JAX step of a case of ``CASES``, built once a case."""
-    cache = {}
+def run(batch, programs):
+    """The JAX step and eval step from the shared state and batch."""
+    return _jax_step(batch, {}, None, programs=programs, with_eval=True)
 
-    def get(case):
-        overrides, _, slope = CASES[case]
-        key = (tuple(sorted(overrides.items())), slope)
+
+@pytest.fixture(scope="module")
+def jax_runs(batch, run, programs):
+    """The JAX step of a config, slope and start epoch, run once each."""
+    cache = {((), None, 0): run}
+
+    def get(overrides, slope, epoch):
+        key = (tuple(sorted(overrides.items())), slope, epoch)
         if key not in cache:
-            cache[key] = run if key == ((), None) else _jax_step(batch, overrides, slope)
+            cache[key] = _jax_step(batch, overrides, slope, epoch, programs)
         return cache[key]
 
     return get
@@ -284,27 +386,78 @@ def _assert_new_params_close(params, old_sd, want_grads, new_sd, lr, wd):
         assert float(err.max()) <= 2 * lr + 1e-6, name
 
 
+def _l2(a, b):
+    return float((a.float() - b.float()).norm())
+
+
+def _assert_within_bf16_spread(metrics, params, got_sd, run, run_f32):
+    """The bfloat16 yardstick (module docstring): leaf by leaf, the port's
+    bfloat16 value within ``BF16_SPREAD`` x the L2 distance between JAX's
+    bfloat16 and float32 values on the same state and batch; a metric's
+    relative error within ``BF16_SPREAD`` x the largest relative distance
+    among the step's loss metrics."""
+    losses = [k for k in run["metrics"] if k != "lr"]
+    yard = max(abs(float(run["metrics"][k]) / float(run_f32["metrics"][k]) - 1)
+               for k in losses)
+    for k in losses:
+        err = abs(float(metrics[k]) / float(run["metrics"][k]) - 1)
+        assert err <= BF16_SPREAD * yard, (k, err, yard)
+    want_grads = from_jax_variables(run["grads"], {})
+    ref_grads = from_jax_variables(run_f32["grads"], {})
+    for name, p in params.items():
+        yard = _l2(want_grads[name], ref_grads[name])
+        err = _l2(p.grad, want_grads[name])
+        assert err <= BF16_SPREAD * yard, ("grad", name, err, yard)
+    for name, want in run["new_sd"].items():
+        if name.endswith(("running_mean", "running_var", "memory_bank")):
+            yard = _l2(want, run_f32["new_sd"][name])
+            err = _l2(got_sd[name], want)
+            assert err <= BF16_SPREAD * yard, (name, err, yard)
+    # Adam's first step moves an element by +-lr: the new parameters differ
+    # by 2 lr where the two sides' steps took opposite signs, and by
+    # roundoff elsewhere.  Over all leaves, the port's opposite steps number
+    # at most BF16_SPREAD x those between JAX's bfloat16 and float32 steps.
+    lr = float(run["metrics"]["lr"])
+    flips = yard = 0
+    for name, p in params.items():
+        want = run["new_sd"][name]
+        err = (p.detach() - want).abs()
+        assert float(err.max()) <= 2 * lr + 1e-6, name
+        flips += int((err > lr).sum())
+        yard += int(((want - run_f32["new_sd"][name]).abs() > lr).sum())
+    assert flips <= BF16_SPREAD * yard, (flips, yard)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_train_step_matches_jax(jax_runs, case):
-    run = jax_runs(case)
-    overrides, port_overrides, slope = CASES[case]
+    overrides, port_overrides, slope, epoch = CASES[case]
+    run = jax_runs(overrides, slope, epoch)
     config, state = _port_state(run["sd0"], **overrides, **port_overrides)
+    state.step = epoch * STEPS_PER_EPOCH
     with _slope(slope):
         metrics = make_pacing_train_step(config, STEPS_PER_EPOCH)(
             state, _port_batch(run["batch"]))
-    assert state.step == 1
-
+    assert state.step == epoch * STEPS_PER_EPOCH + 1
     assert sorted(metrics) == sorted(run["metrics"])
+    # JAX's poly decay runs in float32: (1 - 395/400) carries ~4e-6 of it.
+    assert np.isclose(float(metrics["lr"]), float(run["metrics"]["lr"]), rtol=1e-5, atol=0)
+    params = dict(state.model.named_parameters())
+    got_sd = state.model.state_dict()
+
+    if config.compute_dtype == "bfloat16":
+        as_f32 = {k: v for k, v in overrides.items() if k != "compute_dtype"}
+        _assert_within_bf16_spread(metrics, params, got_sd, run,
+                                   jax_runs(as_f32, slope, epoch))
+        return
+
     for k, want in run["metrics"].items():
         assert np.isclose(float(metrics[k]), float(want), rtol=1e-4, atol=0), k
 
-    params = dict(state.model.named_parameters())
     want_grads = from_jax_variables(run["grads"], {})
     _assert_grads_close(params, want_grads)
     _assert_new_params_close(params, run["sd0"], want_grads, run["new_sd"],
                              float(run["metrics"]["lr"]), config.wd)
 
-    got_sd = state.model.state_dict()
     for name, want in run["new_sd"].items():
         if name.endswith(("running_mean", "running_var", "memory_bank")):
             err = float((got_sd[name] - want).abs().max())

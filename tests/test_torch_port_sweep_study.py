@@ -14,7 +14,9 @@ its runner's checks and its comparison, on the CPU.
   of four edits fails its rule alone (inside the other rules' bands);
 * the runner's checks before and after training at a tiny size: a pool's
   fold figures against a header and a patient count, JAX's headers from
-  its logs, a run log's headers, and the config hash beside JAX's.
+  its logs, a run log's headers, and the config hash beside JAX's;
+* the draw-against-defect rule of ``scripts/control_from_jax_init.py``'s
+  sweep-fold mode, at and beside its thresholds.
 """
 import importlib.util
 import json
@@ -191,3 +193,18 @@ def test_runner_checks_each_log_and_reports_the_hash(tmp_path, tiny_pool, runner
     report = runner.config_hash_report(runner.sweep_argv("Experiment", str(tmp_path), 0),
                                        str(JAX_SWEEP), "Experiment")
     assert "JAX's 88de1df7c0dc" in report
+
+
+@pytest.mark.parametrize("gap_i,gaps_ii,verdict", [
+    (0.060, [], "explained by the draw"),
+    (0.050, [-0.02, 0.01], "explained by the draw"),
+    (0.030, [0.00, 0.01], "still open"),
+    (0.020, [0.00, 0.029], "not the draw"),
+    (-0.015, [0.00, 0.030], "still open"),
+    (0.010, [0.00], "incomplete"),
+    (None, [0.00, 0.01], "incomplete"),
+])
+def test_fault3_rule(gap_i, gaps_ii, verdict):
+    """``scripts/control_from_jax_init.py``'s rule for a sweep fold, at
+    and beside its thresholds (+0.05, +0.02, +0.03), two seeds in (ii)."""
+    assert _script("control_from_jax_init").sweep_verdict(gap_i, gaps_ii, 2) == verdict
