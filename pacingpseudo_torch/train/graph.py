@@ -62,6 +62,17 @@ What a replay must not bake in, and what it does about it:
   caller is done, :meth:`StepGraph.reset` releases the graph; the
   parameters' gradients of the last replay live in its pool until the next
   ``zero_grad``.
+
+What it measures (``utils/trace.py``): a capture is the host span
+``graph.capture``, with one child span each for the drain
+(``graph.drain``, the ``synchronize``), ``graph.empty_cache``, the eager
+update (``graph.eager_update``) and the capture itself (``graph.record``).
+The whole update, gather included, is one device-phase region
+(``trace.update``), so the captured graph records the phase events at
+every replay; the capture that replaces a replayed graph reads them after
+its ``synchronize``, before the eager update records them again: one
+sample of the last replayed update a capture, and no host read on the
+replay path.  ``captures`` and ``replays`` count this object's.
 """
 from __future__ import annotations
 
@@ -70,15 +81,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from pacingpseudo_torch.ops import fused_convbn, fused_loss, warp_cubic, warp_table
 from pacingpseudo_torch.train.optim import make_capturable
-
-
-def _launch_counters():
-    """The wrappers' launch counters: each op module's ``LAUNCHES`` and its
-    per-route ``ROUTES`` counts."""
-    return (fused_loss.LAUNCHES, *fused_loss.ROUTES.values(), fused_convbn.LAUNCHES,
-            *fused_convbn.ROUTES.values(), warp_cubic.LAUNCHES, warp_table.LAUNCHES)
+from pacingpseudo_torch.utils import trace
 
 
 class StepGraph:
@@ -89,10 +93,11 @@ class StepGraph:
         self._key = None
         self._static: Dict[str, torch.Tensor] = {}
         self._metrics: Dict = {}
-        self._launches = ()     # per counter of _launch_counters: a replay's launches
+        self._launches = ()     # (counter, a replay's launches) per counter that grows
         self._stream: Optional[torch.cuda.Stream] = None
         self.captures = 0
         self.replays = 0
+        self._replayed = False      # the graph has replayed since its capture
 
     def run(self, step: Callable, state, inputs: Dict[str, torch.Tensor],
             to_batch: Callable, generator: torch.Generator,
@@ -111,11 +116,12 @@ class StepGraph:
             self._static[k].copy_(v)
         reseed(state.step)
         self._graph.replay()
-        for counter, launches in zip(_launch_counters(), self._launches):
+        for counter, launches in self._launches:
             for k, n in launches.items():
                 counter[k] += n
         state.step += 1
         self.replays += 1
+        self._replayed = True
         return self._metrics
 
     def reset(self) -> None:
@@ -123,46 +129,54 @@ class StepGraph:
         if self._graph is not None:
             self._graph.reset()
         self._graph, self._key, self._static, self._metrics = None, None, {}, {}
-        self._launches = ()
+        self._launches, self._replayed = (), False
 
     def _capture(self, key, step, state, inputs, to_batch, generator, reseed):
-        old = self._graph
-        self._graph, self._key, self._static, self._metrics = None, None, {}, {}
-        device = next(iter(inputs.values())).device
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        make_capturable(state.optimizer)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        stream, current = self._stream, torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream), warnings.catch_warnings():
-            # capturable Adam warns when it steps outside a capture: the
-            # eager update below is meant
-            warnings.filterwarnings("ignore", message=".*capturable=True.*")
-            static = {k: v.clone() for k, v in inputs.items()}
-            reseed(state.step)
-            metrics = step(state, to_batch(static), generator)
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(generator)
-            n = state.step
-            counters = _launch_counters()
-            before = [dict(c) for c in counters]
-            graph.capture_begin(pool=None if old is None else old.pool(),
-                                capture_error_mode="thread_local")
-            try:
-                captured = step(state, to_batch(static), generator)
-            finally:
-                graph.capture_end()
-                state.step = n
-            # what the wrappers counted in the capture, each replay launches
-            self._launches = tuple({k: c[k] - b[k] for k in c if c[k] != b[k]}
-                                   for c, b in zip(counters, before))
-            for c, b in zip(counters, before):
-                c.update(b)
-        current.wait_stream(stream)
-        if old is not None:
-            old.reset()
-        self._graph, self._key, self._static, self._metrics = graph, key, static, captured
-        self.captures += 1
-        return metrics
+        with trace.span("graph.capture"):
+            old, replayed = self._graph, self._replayed
+            self._graph, self._key, self._static, self._metrics = None, None, {}, {}
+            device = next(iter(inputs.values())).device
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device)
+            make_capturable(state.optimizer)
+            with trace.span("graph.drain"):
+                torch.cuda.synchronize(device)
+            trace.sample(device, phases=old is not None and replayed)
+            with trace.span("graph.empty_cache"):
+                torch.cuda.empty_cache()
+            stream, current = self._stream, torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream), warnings.catch_warnings():
+                # capturable Adam warns when it steps outside a capture: the
+                # eager update below is meant
+                warnings.filterwarnings("ignore", message=".*capturable=True.*")
+                static = {k: v.clone() for k, v in inputs.items()}
+                reseed(state.step)
+                with trace.span("graph.eager_update"), trace.update(device):
+                    metrics = step(state, to_batch(static), generator)
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(generator)
+                n = state.step
+                counters = tuple(trace.launch_counters().values())
+                before = [dict(c) for c in counters]
+                with trace.span("graph.record"):
+                    graph.capture_begin(pool=None if old is None else old.pool(),
+                                        capture_error_mode="thread_local")
+                    try:
+                        with trace.update(device):
+                            captured = step(state, to_batch(static), generator)
+                    finally:
+                        graph.capture_end()
+                        state.step = n
+                # what the wrappers counted in the capture, each replay launches
+                self._launches = tuple((c, {k: c[k] - b[k] for k in c if c[k] != b[k]})
+                                       for c, b in zip(counters, before) if c != b)
+                for c, b in zip(counters, before):
+                    c.update(b)
+            current.wait_stream(stream)
+            if old is not None:
+                old.reset()
+            self._graph, self._key, self._static, self._metrics = graph, key, static, captured
+            self.captures += 1
+            self._replayed = False
+            return metrics

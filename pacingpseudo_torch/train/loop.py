@@ -53,6 +53,16 @@ streams, as JAX's streaming validation is.  ``profile_dir``: a
 ``torch.profiler`` trace of epoch ``start + 1`` (with its validation),
 as JAX traces it.
 
+Measurements (``utils/trace.py``), always on: host spans around the
+dispatch's index upload (``loop.upload``), the streamed loader's wait
+(``loop.loader_wait``), the epoch's metric read (``loop.metrics_read``),
+the figure panels (``loop.figures``), the validation (``loop.validation``,
+its host read ``loop.val_read``, its device time ``loop.val_device``) and
+each checkpoint save (``loop.checkpoint``); under ``profile_dir`` they lie
+in the trace beside the kernels.  Each epoch logs one ``trace:`` line: the
+device phases of the last sampled replayed update, the last capture's
+parts, and the epoch's upload and loader wait.
+
 Several devices (JAX's ``loop.py:254-285,319-364``): ``device`` may list
 devices (``--gpu 0,1``; on the CPU ``config.num_devices`` ranks share it),
 ``config.num_devices`` takes the first k of them (0: all), and
@@ -112,7 +122,7 @@ from pacingpseudo_torch.train.step import (eval_logits, make_chunked_train_step,
                                            make_resident_chunked_train_step,
                                            make_upper_bound_train_step, step_seed,
                                            uses_graph)
-from pacingpseudo_torch.utils import AvgMeter
+from pacingpseudo_torch.utils import AvgMeter, trace
 
 
 def make_run_dir(config: ExperimentConfig) -> str:
@@ -316,6 +326,10 @@ def make_resident_eval_fn(config: ExperimentConfig, ranks: Optional[mesh.RankGro
 
     @torch.no_grad()
     def eval_all(state: TrainState, pool: ValPool):
+        with trace.device_pair("loop.val_device", pool.idx_blocks.device):
+            return eval_blocks(state, pool)
+
+    def eval_blocks(state: TrainState, pool: ValPool):
         dev = pool.idx_blocks.device
         acc = {"loss_sum": torch.zeros((), dtype=torch.float64, device=dev),
                "n_sum": torch.zeros((), dtype=torch.float64, device=dev),
@@ -362,11 +376,14 @@ def make_resident_eval_fn(config: ExperimentConfig, ranks: Optional[mesh.RankGro
 
 def summarize_validation(acc) -> Tuple[list, float, float]:
     """``(per_class Dice, their mean over the foreground classes, loss)``
-    from :func:`make_resident_eval_fn`'s sums: the one host read."""
-    dice_sum, dice_cnt = acc["dice_sum"].cpu().numpy(), acc["dice_cnt"].cpu().numpy()
+    from :func:`make_resident_eval_fn`'s sums: the one host read (the span
+    ``loop.val_read``, which waits for the pass)."""
+    with trace.span("loop.val_read"):
+        dice_sum, dice_cnt = acc["dice_sum"].cpu().numpy(), acc["dice_cnt"].cpu().numpy()
+        loss_sum, n_sum = float(acc["loss_sum"]), float(acc["n_sum"])
     per_class = [float(s / c) if c > 0 else 0.0 for s, c in zip(dice_sum, dice_cnt)]
     avg_all = float(np.mean(per_class[1:])) if len(per_class) > 1 else per_class[0]
-    return per_class, avg_all, float(acc["loss_sum"]) / max(float(acc["n_sum"]), 1e-9)
+    return per_class, avg_all, loss_sum / max(n_sum, 1e-9)
 
 
 def _augment_params(config: ExperimentConfig):
@@ -584,28 +601,33 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         # `last`: the epoch's last batch, for the figure panels (an index
         # block into the pool, or the loader's host batch)
         acc, last = None, None
+        waits = {name: trace.total(name) for name in ("loop.upload", "loop.loader_wait")}
         if resident:
             for pos in range(0, steps_per_epoch, chunk):
-                idx = torch.from_numpy(blocks[pos:pos + chunk].astype(np.int32)).to(device)
+                with trace.span("loop.upload"):
+                    idx = torch.from_numpy(blocks[pos:pos + chunk].astype(np.int32)).to(device)
                 acc = step_fn(state, idx, generator, config.seed, acc)
             last = idx[-1]
         else:
             pending = []
-            for raw in train_loader.batches(blocks):
+            for raw in _timed(train_loader.batches(blocks), "loop.loader_wait"):
                 raw.pop("uid", None)
                 pending.append(raw)
                 if len(pending) == chunk:
-                    acc = step_fn(state, stack_to_device(pending, device), generator,
-                                  config.seed, acc)
+                    with trace.span("loop.upload"):
+                        xs = stack_to_device(pending, device)
+                    acc = step_fn(state, xs, generator, config.seed, acc)
                     last, pending = pending[-1], []
             if pending:
-                acc = step_fn(state, stack_to_device(pending, device), generator,
-                              config.seed, acc)
+                with trace.span("loop.upload"):
+                    xs = stack_to_device(pending, device)
+                acc = step_fn(state, xs, generator, config.seed, acc)
                 last = pending[-1]
         # Read the accumulated device metrics BEFORE stopping the epoch
         # timer: launches are asynchronous and only this host read waits.
-        names = [k for k in acc if k != "lr"]
-        values = torch.stack([acc[k].float() for k in names]).cpu().tolist()
+        with trace.span("loop.metrics_read"):
+            names = [k for k in acc if k != "lr"]
+            values = torch.stack([acc[k].float() for k in names]).cpu().tolist()
         means = {"lr": acc["lr"] / steps_per_epoch,
                  **{k: v / steps_per_epoch for k, v in zip(names, values)}}
         toc = time.time()
@@ -638,25 +660,27 @@ def _train_driver(config: ExperimentConfig, data_root: str,
         # session draws none, as in JAX (loop.py:487).  A sharded pool's
         # gather is a collective, so every rank joins it.
         if config.tb_figures and not upper_bound and (tb or (n_data > 1 and resident)):
-            fig_raw = (pool_gather(train_pool, last) if resident else
-                       raw_batch_to_device(last, device, shrink=True))
-            if tb:
-                generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
-                fig_batch = augment_fn(fig_raw, generator)
-                # Rank 0's forward of the whole batch, alone: no halo
-                # exchange (the next step attaches the ranks again).
-                mesh.attach_ranks(state.model, None)
-                fig_out = _figure_forward(state, fig_batch)
-                _tb_train_figures(
-                    tb, {k: v.float().cpu().numpy() for k, v in fig_batch.items()},
-                    {k: v.float().cpu().numpy() for k, v in fig_out.items()
-                     if k.endswith("logits") or k.endswith("logits_strong")},
-                    epoch)
+            with trace.span("loop.figures"):
+                fig_raw = (pool_gather(train_pool, last) if resident else
+                           raw_batch_to_device(last, device, shrink=True))
+                if tb:
+                    generator.manual_seed(step_seed(config.seed, 1_000_000 + epoch))
+                    fig_batch = augment_fn(fig_raw, generator)
+                    # Rank 0's forward of the whole batch, alone: no halo
+                    # exchange (the next step attaches the ranks again).
+                    mesh.attach_ranks(state.model, None)
+                    fig_out = _figure_forward(state, fig_batch)
+                    _tb_train_figures(
+                        tb, {k: v.float().cpu().numpy() for k, v in fig_batch.items()},
+                        {k: v.float().cpu().numpy() for k, v in fig_out.items()
+                         if k.endswith("logits") or k.endswith("logits_strong")},
+                        epoch)
 
         # ---- validation (full labels, masked to the live region), on the
         # device; one host read
-        per_class, avg_all, val_loss_avg = summarize_validation(
-            resident_eval(state, val_pool))
+        with trace.span("loop.validation"):
+            per_class, avg_all, val_loss_avg = summarize_validation(
+                resident_eval(state, val_pool))
         valdice[epoch] = avg_all
         # persist every epoch (cheap) so crash+resume keeps the history;
         # the reference wrote it once at the end (train_chaos.py:428)
@@ -667,6 +691,7 @@ def _train_driver(config: ExperimentConfig, data_root: str,
                      epoch, val_loss_avg,
                      ", ".join(f"{n}: {d:.4f}" for n, d in zip(spec_names, per_class)),
                      avg_all)
+        logging.info("trace: %03d, %s", epoch, _trace_line(waits))
         if tb:
             tb.add_scalar("losses/loss_val", val_loss_avg, epoch)
             for n_, d in zip(spec_names, per_class):
@@ -726,7 +751,39 @@ def _stop_profiler(profiler, profile_dir: str, epoch: int) -> None:
     logging.info("profiler trace written to %s", path)
 
 
+def _timed(items, name: str):
+    """``items``, each wait for the next one (the last, which finds the end,
+    too) timed as the span ``name``."""
+    items = iter(items)
+    while True:
+        with trace.span(name):
+            item = next(items, None)
+        if item is None:
+            return
+        yield item
+
+
 def _save(path: str, state: TrainState) -> None:
-    tic = time.time()
-    ckpt_lib.save_checkpoint(path, state)
-    logging.info("checkpoint %s saved in %.3f s", os.path.basename(path), time.time() - tic)
+    with trace.span("loop.checkpoint"):
+        ckpt_lib.save_checkpoint(path, state)
+    logging.info("checkpoint %s saved in %.3f s", os.path.basename(path),
+                 trace.latest("loop.checkpoint") / 1e3)
+
+
+def _trace_line(waits: Dict[str, float]) -> str:
+    """The epoch log's line of measurements: the device phases of the last
+    sampled replayed update, the last capture and its four parts (host ms),
+    and the epoch's upload and loader wait (``waits``: their totals when
+    the epoch began)."""
+    update = trace.latest("phase.update")
+    parts = ["update not sampled" if update is None else
+             f"update {update:.2f} ms on the device ("
+             + ", ".join(f"{p} {trace.latest('phase.' + p):.2f}" for p in trace.PHASES) + ")"]
+    capture = trace.latest("graph.capture")
+    if capture is not None:
+        parts.append(f"capture {capture:.1f} ms (" + ", ".join(
+            f"{p} {trace.latest('graph.' + p):.1f}"
+            for p in ("drain", "empty_cache", "eager_update", "record")) + ")")
+    parts += [f"{name[5:].replace('_', ' ')} {trace.total(name) - before:.2f} ms"
+              for name, before in waits.items()]
+    return ", ".join(parts)

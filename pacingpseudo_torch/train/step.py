@@ -43,6 +43,17 @@ same on every rank.  So one update is the single-device update on the
 global batch (the JAX package's sharded step, ``pacingpseudo_tpu/parallel/
 mesh.py`` and ``spatial.py``).  The chunked steps take them as they take
 the single-device step.
+
+Device phases (``utils/trace.py``): a train step is one update region,
+its boundaries marked where the work happens: the start, the end of the
+augmentation (the gather too, where ``StepGraph``'s region opens before
+it), the end of the model's forward (in ``_pacing_losses`` and
+``_upper_bound_losses``, right after ``model(...)``), the start and the
+end of ``backward()``, and the end of the step.  So the phases are
+``augment``, ``forward`` (both streams and the aux path's forward; with
+ranks the cut of the batch too), ``losses`` (every loss term, the bank's
+new prototypes and their CE), ``backward`` and ``optimizer`` (with ranks
+the gradients' sum; Adam, the bank's write, the metrics).
 """
 from __future__ import annotations
 
@@ -72,6 +83,7 @@ from pacingpseudo_torch.train.graph import StepGraph
 from pacingpseudo_torch.train.optim import lr_at, set_lr
 from pacingpseudo_torch.train.schedules import gaussian_ramp_up
 from pacingpseudo_torch.train.state import TrainState
+from pacingpseudo_torch.utils import trace
 
 
 def _use_fused_loss_kernel(config, logits, valid_mask) -> bool:
@@ -109,6 +121,7 @@ def _pacing_losses(config, model, batch, epoch, ranks=None, shard=None):
                     if config.do_decoder_consistency else None)
     outputs = model(batch["image"], image_strong, train=True)
     logits_weak = outputs["segmentation/logits"]
+    trace.mark("forward", logits_weak.device)
     scb_target = scribble.argmax(dim=1)
 
     if _use_fused_loss_kernel(config, logits_weak, valid_mask):
@@ -260,36 +273,41 @@ def _make_train_step(config, steps_per_epoch: int, losses: Callable,
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
-        model, opt = state.model, state.optimizer
-        epoch, lr = step_scalars(config, state.step, steps_per_epoch)
-        if augment_fn is not None:
-            if generator is None:
-                raise ValueError("a step with an augment_fn needs a generator")
-            with torch.no_grad():
-                batch = augment_fn(batch, generator)
-        extra = {}
-        if ranks is not None:
-            whole = batch.get("scribble")
-            batch, shard = spatial.shard_batch(batch, ranks, config.output_stride)
-            if whole is not None:
-                batch["scribble_global"] = whole
-            attach_ranks(model, ranks, shard)
-            extra = {"ranks": ranks, "shard": shard}
-        model.train(module_train)
-        opt.zero_grad(set_to_none=True)
-        total, metrics, new_bank = losses(config, model, batch, epoch, **extra)
-        total.backward()
-        if ranks is not None:
-            ranks.sum_grads(model.parameters())
-            metrics = ranks.sum_metrics(metrics)
-        set_lr(opt, lr)
-        opt.step()
-        if new_bank is not None:
-            model.aux_path.memory_bank.copy_(new_bank[:, :, None, None])
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["lr"] = lr
-        return metrics
+        device = batch["image"].device
+        with trace.update(device):
+            model, opt = state.model, state.optimizer
+            epoch, lr = step_scalars(config, state.step, steps_per_epoch)
+            if augment_fn is not None:
+                if generator is None:
+                    raise ValueError("a step with an augment_fn needs a generator")
+                with torch.no_grad():
+                    batch = augment_fn(batch, generator)
+            trace.mark("augmented", device)
+            extra = {}
+            if ranks is not None:
+                whole = batch.get("scribble")
+                batch, shard = spatial.shard_batch(batch, ranks, config.output_stride)
+                if whole is not None:
+                    batch["scribble_global"] = whole
+                attach_ranks(model, ranks, shard)
+                extra = {"ranks": ranks, "shard": shard}
+            model.train(module_train)
+            opt.zero_grad(set_to_none=True)
+            total, metrics, new_bank = losses(config, model, batch, epoch, **extra)
+            trace.mark("backward", device)
+            total.backward()
+            trace.mark("backward_end", device)
+            if ranks is not None:
+                ranks.sum_grads(model.parameters())
+                metrics = ranks.sum_metrics(metrics)
+            set_lr(opt, lr)
+            opt.step()
+            if new_bank is not None:
+                model.aux_path.memory_bank.copy_(new_bank[:, :, None, None])
+            state.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["lr"] = lr
+            return metrics
 
     train_step.scalars = lambda step: step_scalars(config, step, steps_per_epoch)
     train_step.ranks = ranks
@@ -322,7 +340,7 @@ def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGrap
     update ``k`` reseeds the generators from ``(seed, state.step)``
     (:func:`seed_step`) and steps on ``to_batch({key: xs[key][k]})``, as
     a replay of ``graph`` (a new one when None) where :func:`uses_graph`
-    for the step's ranks."""
+    for the step's ranks; a call is the host span ``step.dispatch``."""
     graph = StepGraph() if graph is None else graph
     ranks = getattr(step, "ranks", None)
     backend = None if ranks is None else ranks.backend
@@ -338,14 +356,15 @@ def _chunk_runner(step, chunk: int, to_batch: Callable, graph: Optional[StepGrap
             seed_step(generator, device, seed, n)
 
         graphed = uses_graph(device, chunk, backend)
-        for k in range(k_steps):
-            inputs = {key: v[k] for key, v in xs.items()}
-            if graphed:
-                metrics = graph.run(step, state, inputs, to_batch, generator, reseed)
-            else:
-                reseed(state.step)
-                metrics = step(state, to_batch(inputs), generator)
-            acc = _accumulate(acc, metrics)
+        with trace.span("step.dispatch"):
+            for k in range(k_steps):
+                inputs = {key: v[k] for key, v in xs.items()}
+                if graphed:
+                    metrics = graph.run(step, state, inputs, to_batch, generator, reseed)
+                else:
+                    reseed(state.step)
+                    metrics = step(state, to_batch(inputs), generator)
+                acc = _accumulate(acc, metrics)
         return acc
 
     return run
@@ -485,6 +504,7 @@ def _upper_bound_losses(config, model, batch, epoch, ranks=None, shard=None):
     row is all zero and its argmax 0 (``torch.argmax`` takes the first
     maximum, as JAX's does), so padding trains as background."""
     logits = model(batch["image"], None, train=True)["segmentation/logits"]
+    trace.mark("forward", logits.device)
     loss_ce = partial_cross_entropy_loss(logits, batch["label"].argmax(dim=1),
                                          config.ignored_index, ranks)
     total = loss_ce
